@@ -63,29 +63,6 @@ def _loaders_with_names(data_module, split: str = "val") -> List:
     return [(None, loaders)]
 
 
-def _shard_mapped(step, encoder, mesh, num_batch_args: int):
-    """Partition an encode step over the data mesh axis explicitly when the
-    encoder runs Pallas kernels (whole-layer megakernels via fused_block, or
-    flax fused attention): GSPMD cannot partition a pallas_call, so under
-    plain jit it all-gathers the batch and runs the FULL kernel on every
-    device (verified in HLO). shard_map runs the kernel on each device's
-    shard instead. Params replicate; batch args shard on the leading axis
-    (runners pad batches to mesh divisibility); encode steps are
-    per-example, so shard_map is numerics-preserving."""
-    uses_pallas = (getattr(encoder, "uses_pallas", False)
-                   or getattr(encoder, "fused_block", False)
-                   or getattr(encoder, "fused_attention", False))
-    if not uses_pallas or mesh.devices.size == 1:
-        return step
-    from jax.sharding import PartitionSpec as P
-
-    from fitclip_tpu.parallel.mesh import shard_map_compat
-
-    return shard_map_compat(step, mesh=mesh,
-                            in_specs=(P(),) + (P("data"),) * num_batch_args,
-                            out_specs=P("data"))
-
-
 def _load_persisted_scales(encoder, params, quant_cfg) -> Tuple[Any, bool]:
     """If quant.scales_path exists, restore persisted activation scales and
     skip calibration. Returns (params, calibrated)."""
@@ -101,7 +78,7 @@ def _load_persisted_scales(encoder, params, quant_cfg) -> Tuple[Any, bool]:
 def _calibrate_on_batches(encoder, params, observations, quant_cfg):
     """Post-training quantization over K eval batches: running abs-max across
     all observations (each an (video, text) pair), one scale write. A single
-    skewed batch no longer owns the scales (VERDICT r2 weak #6)."""
+    skewed batch does not own the scales."""
     from fitclip_tpu.ops.quant import apply_act_scales, merge_act_amax, save_act_scales
 
     amax = None
@@ -140,7 +117,7 @@ def run_retrieval_eval(loaded: LoadedEncoder, data_module,
         t = encoder.encode_text(params, text).astype(jnp.float32)
         return v, t
 
-    eval_step = jax.jit(_shard_mapped(_eval_step, encoder, mesh, 2))
+    eval_step = jax.jit(_eval_step)
 
     def video_text(batch):
         device_batch, valid = split_device_batch(batch)
@@ -220,9 +197,8 @@ def run_classification_eval(loaded: LoadedEncoder, data_module, mesh=None,
 
     label_bank = encode_label_bank(encoder, params, tokenized, num_labels=len(labels))
 
-    encode_video = jax.jit(_shard_mapped(
-        lambda params, video: encoder.encode_video(params, video).astype(jnp.float32),
-        encoder, mesh, 1))
+    encode_video = jax.jit(
+        lambda params, video: encoder.encode_video(params, video).astype(jnp.float32))
 
     evaluator = ClassificationEvaluator(label_bank=label_bank, per_class=per_class)
 
@@ -249,11 +225,10 @@ def run_predict(loaded: LoadedEncoder, data_module, mesh=None,
     encoder = loaded.encoder
     params = jax.device_put(loaded.params, replicated(mesh))
 
-    eval_step = jax.jit(_shard_mapped(
+    eval_step = jax.jit(
         lambda params, video, text: (
             encoder.encode_video(params, video).astype(jnp.float32),
-            encoder.encode_text(params, text).astype(jnp.float32)),
-        encoder, mesh, 2))
+            encoder.encode_text(params, text).astype(jnp.float32)))
 
     encoded_videos, encoded_texts, video_ids = [], [], []
     loaders = data_module.predict_dataloader()
@@ -290,7 +265,7 @@ def _run_predict_classification(loaded, data_module, mesh, output_path):
         scores = jnp.matmul(emb, label_bank.astype(jnp.float32).T)
         return jnp.argmax(scores, axis=-1)
 
-    predict_step = jax.jit(_shard_mapped(_predict_step, encoder, mesh, 1))
+    predict_step = jax.jit(_predict_step)
 
     predictions_list, labels_list, video_ids = [], [], []
     loaders = data_module.predict_dataloader()

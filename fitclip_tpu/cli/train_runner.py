@@ -109,32 +109,14 @@ def run_train(encoder_slot, data_module, model_cfg: Mapping[str, Any],
     for slot_name, loaded in slots:
         enc = loaded.encoder
         # The frozen teacher never receives gradients (steps.py wraps its
-        # outputs in stop_gradient), so an inference-form teacher — int8 or
-        # fused_block megakernel — is valid and fast; only gradient-carrying
-        # slots must have a differentiable path.
+        # outputs in stop_gradient), so an int8 teacher is valid; only
+        # gradient-carrying slots must have a differentiable path.
         if slot_name == "teacher":
             continue
         if getattr(enc, "trainable", True) is False or getattr(enc, "quantized", False):
             raise ValueError(
                 f"{type(enc).__name__} is evaluation-only (eval-form weights/int8); "
                 "fine-tune a ViT CLIP encoder instead (e.g. encoder=clip_vit_b_16)")
-        if getattr(enc, "fused_block", False):
-            raise ValueError(
-                f"{type(enc).__name__} was built with fused_block (the inference "
-                "layer megakernel, which has no gradient path); rebuild with "
-                "++encoder.fused_block=false to train")
-        if getattr(getattr(enc, "model", None), "fused_attention", False) \
-                and mesh.devices.size > 1:
-            # GSPMD cannot partition a pallas_call: under plain jit it
-            # all-gathers the batch and runs the FULL attention kernel on
-            # every device (verified in HLO for the eval path). Correct but
-            # wasteful — multi-chip training should use the einsum path,
-            # which partitions cleanly.
-            LOGGER.warning(
-                "%s slot uses the Pallas fused-attention kernel on a %d-device "
-                "mesh; GSPMD will replicate the kernel's work. Pass "
-                "++encoder.fused_attention=false for partitioned multi-chip "
-                "training.", slot_name, mesh.devices.size)
         bn_freeze_patterns.extend(getattr(enc, "bn_freeze_patterns", ()))
 
     init_temperature = float(model_cfg.get("init_temperature", 0.05))

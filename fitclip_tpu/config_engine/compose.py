@@ -1,7 +1,7 @@
 """Hydra-compatible config composition, from scratch.
 
-The reference's entire flag system is Hydra + OmegaConf (SURVEY §5.6) and
-BASELINE requires preserving the ``aligner command=evaluate encoder=... data=...``
+The reference's entire flag system is Hydra + OmegaConf (SURVEY §5.6), and
+the system preserves the ``aligner command=evaluate encoder=... data=...``
 CLI shape. Hydra is not available in this environment, so this module
 implements the subset the reference configs rely on:
 

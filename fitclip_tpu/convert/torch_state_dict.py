@@ -1,7 +1,7 @@
 """PyTorch checkpoint -> JAX pytree conversion for the CLIP encoder family.
 
 The reference framework's released artifacts are torch `.pt` state dicts
-(README.md:35-54); BASELINE demands loading them with <=1e-3 embedding delta.
+(README.md:35-54); loading them must hold the embeddings to <=1e-3.
 This module maps both naming schemas onto the Flax parameter tree of
 ``fitclip_tpu.models.clip.CLIPModel``:
 

@@ -99,10 +99,9 @@ class NativeVideoReader(VideoReader):
                 height, width = h.value, w.value
                 # Engage decode-time scaling only when the source is >= 2x
                 # the target short side: there the lowres DCT decode and/or
-                # the much-smaller swscale output pay for themselves
-                # (measured 153 -> 99 ms/clip at 720p MJPG). Below 2x, a 1:1
-                # conversion + the transform's SIMD cv2 resize is faster than
-                # a bicubic swscale (measured 12.4 vs 15.5 ms/clip at 320p).
+                # the much-smaller swscale output pay for themselves. Below
+                # 2x, a 1:1 conversion + the transform's SIMD cv2 resize is
+                # faster than a bicubic swscale.
                 if self.short_side and min(height, width) >= 2 * self.short_side:
                     height, width = scaled_size(height, width, self.short_side)
             out = np.empty((len(indices_arr), height, width, 3), dtype=np.uint8)

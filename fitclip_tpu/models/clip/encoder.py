@@ -32,47 +32,21 @@ def l2_normalize(x: jnp.ndarray, axis: int = -1, eps: float = 0.0) -> jnp.ndarra
 class ClipVideoTextEncoder(VideoTextEncoder):
     def __init__(self, config: Optional[CLIPConfig] = None, num_frames: int = 4,
                  dtype=jnp.float32, remat: bool = False,
-                 fused_attention: bool = False,
                  pixel_normalization_folded: bool = False,
                  quantized: bool = False,
-                 fused_block: Optional[bool] = None,
                  tokenizer: Optional[ClipTokenizer] = None,
-                 bpe_path: Optional[str] = None,
-                 pad_seq: Optional[int] = None) -> None:
+                 bpe_path: Optional[str] = None) -> None:
         self.config = config or CLIPConfig.vit_b_16()
         # quantized = int8 W8A8 block denses (eval-only; ops/quant.py). The
         # params tree must then come from quantize_clip_params.
         self.quantized = quantized
-        # The production int8 config (quantized + fused attention) runs each
-        # transformer layer as ONE Pallas megakernel with VMEM-resident
-        # weights (ops/block.py); fused_block=False forces the separate-op
-        # QuantDense path instead. fused_block=True on a FLOAT encoder opts
-        # into the bf16 layer megakernel — inference only (no gradient path).
-        self.fused_block = (bool(quantized) and fused_attention
-                            if fused_block is None else fused_block)
-        # Exposed so the CLI runners shard_map any Pallas-kernel eval path
-        # under multi-chip meshes (GSPMD can't partition pallas_call).
-        self.fused_attention = fused_attention
-        self.model = CLIPModel(self.config, dtype=dtype, remat=remat,
-                               fused_attention=fused_attention,
-                               quantized=quantized)
+        self.model = CLIPModel(self.config, dtype=dtype, remat=remat)
         # True when fold_pixel_normalization was applied to the params: the
         # uint8 path then only casts (the patch kernel normalizes).
         self.pixel_normalization_folded = pixel_normalization_folded
         self.num_frames = num_frames
         self._tokenizer = tokenizer
         self._bpe_path = bpe_path
-        # Lane-pad of the fused-block vision sequence with masked keys — the
-        # ViT-L/14@336px L=577 experiment knob (measured negative both ways,
-        # BASELINE.md). A per-encoder config value (`++encoder.pad_seq=640`);
-        # the CLIP_PAD_SEQ env var remains as a bench-script default, read
-        # ONCE here at construction so post-compile flips can't silently
-        # no-op (round-4 advisor note).
-        if pad_seq is None:
-            import os
-
-            pad_seq = int(os.environ.get("CLIP_PAD_SEQ", "0"))
-        self.pad_seq = pad_seq
         self.preprocess = PreprocessSpec(
             num_frames=num_frames,
             image_size=self.config.vision.image_size,
@@ -84,39 +58,26 @@ class ClipVideoTextEncoder(VideoTextEncoder):
         )
 
     def init_params(self, rng):
-        cfg = self.config
-        dummy_image = jnp.zeros((1, cfg.vision.image_size, cfg.vision.image_size, 3))
-        dummy_ids = jnp.zeros((1, cfg.text.context_length), jnp.int32)
+        params = self.model.init(rng)
         if self.quantized:
-            # Init a float twin and quantize so random-init tests carry real
+            # Quantize the float init so random-init runs carry real
             # (nonzero) weights in the int8 structure.
             from fitclip_tpu.ops.quant import quantize_clip_params
 
-            float_model = CLIPModel(self.config, dtype=self.model.dtype)
-            params = float_model.init(rng, dummy_image, dummy_ids)["params"]
             return quantize_clip_params(params)
-        return self.model.init(rng, dummy_image, dummy_ids)["params"]
+        return params
 
     def encode_video(self, params, video: jnp.ndarray) -> jnp.ndarray:
         """(B, T, H, W, C) -> (B, D): frames fold into the batch so the whole
-        clip batch rides one big MXU matmul chain, then normalized frame
-        embeddings are mean-pooled (clip_video_text_encoder.py:80-89).
+        clip batch rides one matmul chain, then normalized frame embeddings
+        are mean-pooled (clip_video_text_encoder.py:80-89).
 
         uint8 input is normalized on device ((x/255 - mean)/std) — the host
         pipeline ships raw pixels; XLA fuses the normalization into the patch
         embedding's input. Float input is assumed already normalized."""
         b, t = video.shape[0], video.shape[1]
-        frames = self._prepare_frames(video)
-        if self.fused_block:
-            from fitclip_tpu.models.clip.fast_eval import encode_frames_int8
-
-            embeddings = encode_frames_int8(
-                params, frames, self.config, dtype=self.model.dtype,
-                pad_seq=self.pad_seq)
-        else:
-            embeddings = self.model.apply({"params": params}, frames,
-                                          method=CLIPModel.encode_image)
-        embeddings = l2_normalize(embeddings)
+        embeddings = l2_normalize(self.model.encode_image(
+            params, self._prepare_frames(video)))
         return embeddings.reshape(b, t, -1).mean(axis=1)
 
     def _prepare_frames(self, video: jnp.ndarray) -> jnp.ndarray:
@@ -134,25 +95,16 @@ class ClipVideoTextEncoder(VideoTextEncoder):
     def collect_act_amax(self, params, video: jnp.ndarray,
                          text: Optional[jnp.ndarray] = None):
         """One calibration observation: run both towers in DYNAMIC-quant mode
-        (accurate intermediates) and return the sown activation abs-max tree.
+        (accurate intermediates) and return the activation abs-max tree.
         Merge several observations with ops.quant.merge_act_amax for
         multi-batch calibration."""
-        assert self.quantized, "calibration requires a quantized encoder"
-        dynamic_model = CLIPModel(self.config, dtype=self.model.dtype,
-                                  remat=self.model.remat,
-                                  fused_attention=self.model.fused_attention,
-                                  quantized="dynamic")
-        frames = self._prepare_frames(video)
-        _, state = dynamic_model.apply({"params": params}, frames,
-                                       method=CLIPModel.encode_image,
-                                       mutable=["intermediates"])
-        intermediates = dict(state["intermediates"])
+        if not self.quantized:
+            raise ValueError("calibration requires a quantized encoder")
+        observed = dict(self.model.image_act_amax(params,
+                                                  self._prepare_frames(video)))
         if text is not None:
-            _, text_state = dynamic_model.apply({"params": params}, text,
-                                                method=CLIPModel.encode_text,
-                                                mutable=["intermediates"])
-            intermediates.update(dict(text_state["intermediates"]))
-        return intermediates
+            observed.update(self.model.text_act_amax(params, text))
+        return observed
 
     def calibrate(self, params, video: jnp.ndarray,
                   text: Optional[jnp.ndarray] = None,
@@ -166,14 +118,7 @@ class ClipVideoTextEncoder(VideoTextEncoder):
             params, self.collect_act_amax(params, video, text), margin=margin)
 
     def encode_text(self, params, text: jnp.ndarray) -> jnp.ndarray:
-        if self.fused_block:
-            from fitclip_tpu.models.clip.fast_eval import encode_text_int8
-
-            return l2_normalize(encode_text_int8(params, text, self.config,
-                                                 dtype=self.model.dtype))
-        embeddings = self.model.apply({"params": params}, text,
-                                      method=CLIPModel.encode_text)
-        return l2_normalize(embeddings)
+        return l2_normalize(self.model.encode_text(params, text))
 
     def get_tokenizer(self) -> Callable[[Sequence[str]], np.ndarray]:
         if self._tokenizer is None:

@@ -57,8 +57,6 @@ def load_clip_encoder(name: str = "ViT-B/16",
                       num_frames: int = 4,
                       dtype: str = "float32",
                       remat: bool = False,
-                      fused_attention: Optional[bool] = None,
-                      fused_block: Optional[bool] = None,
                       bpe_path: Optional[str] = None,
                       seed: int = 0,
                       strip_prefix: Optional[str] = None) -> LoadedEncoder:
@@ -66,32 +64,27 @@ def load_clip_encoder(name: str = "ViT-B/16",
         clip_params_from_torch, config_from_openai_state_dict, detect_schema,
         load_torch_state_dict)
 
-    from fitclip_tpu.models.clip.resnet_clip import RESNET_PRESETS
-
-    # Default the fast kernels by backend: the Pallas attention / int8 layer
-    # megakernel on TPU, the einsum path elsewhere (CPU tests would otherwise
-    # crawl through the Pallas interpreter at full model size).
-    if fused_attention is None:
-        fused_attention = jax.default_backend() == "tpu"
-
     state_dict = None
     if checkpoint_path:
         state_dict = load_torch_state_dict(checkpoint_path, strip_prefix=strip_prefix)
-        if "visual.attnpool.q_proj.weight" in state_dict or name in RESNET_PRESETS:
+        if "visual.attnpool.q_proj.weight" in state_dict:
             return _load_resnet_clip(name, state_dict, num_frames=num_frames,
                                      dtype=dtype, bpe_path=bpe_path, seed=seed)
         if detect_schema(state_dict) == "openai":
             config = config_from_openai_state_dict(state_dict)
         else:
             config = PRESETS[name]()
-    elif name in RESNET_PRESETS:
-        return _load_resnet_clip(name, None, num_frames=num_frames,
-                                 dtype=dtype, bpe_path=bpe_path, seed=seed)
     elif name in PRESETS:
         config = PRESETS[name]()
     else:
-        raise ValueError(f"Unknown CLIP preset '{name}' and no checkpoint_path given. "
-                         f"Presets: {sorted(PRESETS) + sorted(RESNET_PRESETS)}")
+        # The ResNet towers are flax modules: imported only when asked for.
+        from fitclip_tpu.models.clip.resnet_clip import RESNET_PRESETS
+
+        if name not in RESNET_PRESETS:
+            raise ValueError(f"Unknown CLIP preset '{name}' and no checkpoint_path "
+                             f"given. Presets: {sorted(PRESETS) + sorted(RESNET_PRESETS)}")
+        return _load_resnet_clip(name, None, num_frames=num_frames,
+                                 dtype=dtype, bpe_path=bpe_path, seed=seed)
 
     # encoder.dtype=int8 selects the W8A8 inference path: bf16 activations,
     # int8 block denses quantized from the loaded fp32 weights (ops/quant.py).
@@ -102,10 +95,7 @@ def load_clip_encoder(name: str = "ViT-B/16",
     compute_dtype = _DTYPES["bfloat16" if quantized else str(dtype)]
     encoder = ClipVideoTextEncoder(config, num_frames=num_frames,
                                    dtype=compute_dtype, remat=remat,
-                                   fused_attention=fused_attention,
-                                   quantized=quantized,
-                                   fused_block=fused_block,
-                                   bpe_path=bpe_path)
+                                   quantized=quantized, bpe_path=bpe_path)
     if state_dict is not None:
         params = clip_params_from_torch(state_dict, config)
         if quantized:
@@ -125,8 +115,8 @@ def _load_resnet_clip(name, state_dict, num_frames: int, bpe_path, seed: int,
 
     config = RESNET_PRESETS[name]
     if str(dtype) == "int8":
-        raise ValueError("encoder.dtype=int8 is transformer-only (whole-layer "
-                         "megakernels); CLIP ResNets support float dtypes — "
+        raise ValueError("encoder.dtype=int8 is transformer-only; CLIP ResNets "
+                         "support float dtypes — "
                          "use bfloat16 for the throughput configuration.")
     encoder = ResNetClipVideoTextEncoder(config, num_frames=num_frames,
                                          dtype=_DTYPES[str(dtype)],

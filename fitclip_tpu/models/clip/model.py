@@ -1,18 +1,25 @@
-"""CLIP dual encoder (ViT vision tower + causal text transformer) in Flax.
+"""CLIP dual encoder (ViT vision tower + causal text transformer) in plain JAX.
 
-A from-scratch TPU-first implementation with the same math as OpenAI CLIP
-(the reference wraps the `clip` package, aligner/encoder/clip_video_text_encoder.py):
+Same math as OpenAI CLIP (the reference wraps the `clip` package,
+aligner/encoder/clip_video_text_encoder.py). No module library: parameters
+are a nested dict, the layout the torch converter writes
+(convert/torch_state_dict.py), and every function here is pure.
 
-- Patch embedding as an unfold + matmul instead of a conv: XLA maps it straight
-  onto the MXU with no layout shuffling.
-- Transformer blocks are stacked with `nn.scan` (single compiled block body,
-  layer-stacked parameters): faster compiles, and `remat` drops activation
-  memory for training at ViT scale.
-- Parameters live in fp32; activations run in a configurable compute dtype
-  (bf16 on TPU). LayerNorms and softmax accumulate in fp32.
+- Patch embedding as an unfold + matmul, bit-equivalent to a stride-p conv.
+- Transformer blocks are stacked along a leading ``layers`` axis and run
+  with ``lax.scan`` (one compiled block body); ``remat`` recomputes the
+  block in the backward pass to save activation memory in training.
+- Parameters live in fp32; activations run in a configurable compute dtype.
+  LayerNorm statistics and the softmax are fp32 in every dtype.
+- A dense node is either float ``{kernel, bias}`` or int8
+  ``{kernel_q, scale, bias, act_scale}`` (ops/quant.quantize_clip_params);
+  the leaves decide which path runs.
 - The pixel normalization ((x/255 - mean) / std) can be folded into the patch
-  embedding weights (`fold_pixel_normalization`) so the device-side input stays
-  uint8 — 4x less HBM traffic on the eval hot path.
+  embedding weights (`fold_pixel_normalization`) so the device-side input
+  stays uint8.
+
+The transformer here is shared: SLIP's towers and the ResNet-CLIP text tower
+run the same ``transformer`` over the same block layout.
 
 `logit_scale` is intentionally not a model parameter: the framework owns the
 temperature in its train state, mirroring the reference deleting CLIP's own
@@ -20,17 +27,21 @@ scale (clip_video_text_encoder.py:76-77).
 """
 
 import dataclasses
-from typing import Any, Optional, Union
+import functools
+from typing import Any, Dict, Optional, Tuple, Union
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
-Dtype = Any
+from fitclip_tpu.ops.attention import attention
+from fitclip_tpu.ops.quant import int8_dense, int8_dense_static
 
-# Explicit matmul precision: XLA's default lowers fp32 matmuls to bf16 passes
-# (on TPU and, in this build, even on CPU), which breaks the <=1e-3 parity bar.
-# For bf16 operands (the perf path) HIGHEST is a no-op, so this costs nothing.
+Dtype = Any
+Params = Dict[str, Any]
+
+# Explicit matmul precision: without it an fp32 matmul may run in a reduced
+# precision (TF32 on the GPU), which breaks the fp32 parity bar. For bf16
+# operands HIGHEST changes nothing.
 PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -95,328 +106,240 @@ def quick_gelu(x: jnp.ndarray) -> jnp.ndarray:
     return x * jax.nn.sigmoid(1.702 * x)
 
 
-class LayerNormFp32(nn.Module):
-    """LayerNorm with fp32 statistics regardless of activation dtype.
-
-    fp32 activations take the exact flax path (parity-tested vs torch at
-    <=1e-4). bf16 activations take a hand-written variant that keeps the
-    mean/var reductions and the normalize arithmetic in fp32 but never
-    materializes an fp32 copy of the tensor — measured ~2x faster per LN on
-    v5e (bench_bisect ln_fp32 vs ln_bf16) with identical fp32-stat math."""
-    dtype: Dtype = jnp.float32
-    eps: float = 1e-5
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        if self.dtype == jnp.float32:
-            return nn.LayerNorm(epsilon=self.eps, dtype=jnp.float32,
-                                param_dtype=jnp.float32, name="ln")(
-                x.astype(jnp.float32))
-        return _FastLayerNorm(self.eps, self.dtype, name="ln")(x)
+def layer_norm(x: jnp.ndarray, node: Params, out_dtype: Dtype,
+               eps: float = 1e-5) -> jnp.ndarray:
+    """LayerNorm over the last axis with fp32 statistics and arithmetic.
+    ``node`` is the {scale, bias} leaf pair."""
+    x32 = x.astype(jnp.float32)
+    mean = jnp.mean(x32, axis=-1, keepdims=True)
+    centered = x32 - mean
+    var = jnp.mean(centered * centered, axis=-1, keepdims=True)
+    y = centered * jax.lax.rsqrt(var + eps)
+    return (y * node["scale"].astype(jnp.float32)
+            + node["bias"].astype(jnp.float32)).astype(out_dtype)
 
 
-class _FastLayerNorm(nn.Module):
-    """bf16-activation LN: fp32 stats/arithmetic without an fp32 tensor copy.
-    Param names match nn.LayerNorm (scale/bias) so the same converted weights
-    load into either path."""
-    eps: float
-    out_dtype: Dtype
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        width = x.shape[-1]
-        scale = self.param("scale", nn.initializers.ones, (width,), jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros, (width,), jnp.float32)
-        mean = jnp.mean(x, axis=-1, keepdims=True, dtype=jnp.float32)
-        centered = x.astype(jnp.float32) - mean
-        var = jnp.mean(centered * centered, axis=-1, keepdims=True)
-        y = centered * jax.lax.rsqrt(var + self.eps)
-        return (y * scale + bias).astype(self.out_dtype)
-
-
-class QuantDense(nn.Module):
-    """int8 W8A8 dense (ops/quant.py). Init yields zero weights — real
-    parameters arrive via quantize_clip_params on a loaded fp32 tree.
-
-    Two activation-quant modes: ``dynamic`` (per-row scales computed on the
-    fly; accurate but pays a reduction pass per dense — calibration mode) and
-    static (default; calibrated per-tensor ``act_scale`` param, quantize is a
-    single fused elementwise op). Every call sows the observed activation
-    abs-max so a calibration pass (mutable=["intermediates"]) can collect
-    scales; when intermediates aren't mutable the sow is dropped and XLA DCEs
-    the reduction."""
-    features: int
-    dtype: Dtype
-    dynamic: bool = False
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        from fitclip_tpu.ops.quant import int8_dense, int8_dense_static
-
-        kernel_q = self.param("kernel_q", nn.initializers.zeros,
-                              (x.shape[-1], self.features), jnp.int8)
-        scale = self.param("scale", nn.initializers.ones,
-                           (self.features,), jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros,
-                          (self.features,), jnp.float32)
-        act_scale = self.param("act_scale", nn.initializers.ones,
-                               (1,), jnp.float32)
+def dense(x: jnp.ndarray, node: Params, dtype: Dtype,
+          observed: Optional[Dict[str, Any]] = None,
+          name: str = "") -> jnp.ndarray:
+    """x @ kernel + bias in ``dtype``. An int8 node runs ops/quant's static
+    W8A8 dense; with ``observed`` (calibration) it runs the dynamic one and
+    records the input's abs-max under ``observed[name]`` in the layout
+    ops.quant.apply_act_scales reads."""
+    if "kernel_q" not in node:
+        y = jnp.matmul(x.astype(dtype), node["kernel"].astype(dtype),
+                       precision=PRECISION)
+        return y + node["bias"].astype(dtype)
+    x = x.astype(dtype)
+    if observed is not None:
         amax = jnp.max(jnp.abs(x.astype(jnp.float32))).reshape(1)
-        self.sow("intermediates", "act_amax", amax)
-        if self.dynamic:
-            return int8_dense(x.astype(self.dtype), kernel_q, scale, bias)
-        return int8_dense_static(x.astype(self.dtype), kernel_q, scale, bias,
-                                 act_scale)
+        observed[name] = {"act_amax": (amax,)}
+        return int8_dense(x, node["kernel_q"], node["scale"], node["bias"])
+    return int8_dense_static(x, node["kernel_q"], node["scale"], node["bias"],
+                             node["act_scale"])
 
 
-def _dense(quantized, features: int, dtype: Dtype, name: str):
-    """quantized: False (float Dense), True ("static" int8) or "dynamic"."""
-    if quantized:
-        return QuantDense(features, dtype, dynamic=(quantized == "dynamic"),
-                          name=name)
-    return nn.Dense(features, dtype=dtype, param_dtype=jnp.float32,
-                    precision=PRECISION, name=name)
-
-
-class _FusedInProjAttention(nn.Module):
-    """QKV projection (int8 W8A8, static act scale) + fused attention as ONE
-    Pallas kernel (ops/attention.py:fused_int8_qkv_attention). Param names
-    and shapes match QuantDense so quantize_clip_params / calibration trees
-    load unchanged (this module is named "in_proj")."""
-    width: int
-    heads: int
-    causal: bool
-    dtype: Dtype
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        from fitclip_tpu.ops.attention import fused_int8_qkv_attention
-        from fitclip_tpu.ops.quant import QUANT_EPS
-
-        features = 3 * self.width
-        kernel_q = self.param("kernel_q", nn.initializers.zeros,
-                              (x.shape[-1], features), jnp.int8)
-        scale = self.param("scale", nn.initializers.ones, (features,), jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros, (features,), jnp.float32)
-        act_scale = self.param("act_scale", nn.initializers.ones, (1,), jnp.float32)
-        amax = jnp.max(jnp.abs(x.astype(jnp.float32))).reshape(1)
-        self.sow("intermediates", "act_amax", amax)
-        inv = 127.0 / jnp.maximum(act_scale.astype(jnp.float32), QUANT_EPS)
-        x_q = jnp.clip(jnp.round(x.astype(jnp.float32) * inv),
-                       -127, 127).astype(jnp.int8)
-        out_scale = (act_scale.astype(jnp.float32) / 127.0) * scale
-        head_dim = self.width // self.heads
-        return fused_int8_qkv_attention(x_q, kernel_q, out_scale, bias,
-                                        self.heads, head_dim ** -0.5,
-                                        self.causal, out_dtype=self.dtype)
-
-
-class MultiHeadAttention(nn.Module):
-    """Self-attention with a fused QKV projection (matches OpenAI's in_proj
-    layout so converted weights drop in as one matmul). With ``fused=True``
-    the QK^T/softmax/AV core runs as a single Pallas kernel (logits stay in
-    VMEM instead of round-tripping fp32 through HBM)."""
-    width: int
-    heads: int
-    causal: bool
-    dtype: Dtype
-    fused: bool = False
-    quantized: bool = False
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        seq = x.shape[-2]
-        head_dim = self.width // self.heads
-        if self.fused and self.quantized is True:
-            # Static-int8 + fused: QKV projection AND attention in one kernel.
-            out = _FusedInProjAttention(self.width, self.heads, self.causal,
-                                        self.dtype, name="in_proj")(x)
-            return _dense(self.quantized, self.width, self.dtype, "out_proj")(out)
-
-        qkv = _dense(self.quantized, 3 * self.width, self.dtype, "in_proj")(x)
-
-        if self.fused:
-            # The kernel consumes the projection's UNSPLIT (B, L, 3*H*D)
-            # output and does the q/k/v + head split/transpose on VMEM data.
-            from fitclip_tpu.ops.attention import fused_attention_qkv
-
-            out = fused_attention_qkv(qkv, self.heads, head_dim ** -0.5,
-                                      self.causal)
-            return _dense(self.quantized, self.width, self.dtype, "out_proj")(out)
-        q, k, v = jnp.split(qkv, 3, axis=-1)
-
-        def split_heads(t):
-            return t.reshape(*t.shape[:-1], self.heads, head_dim)
-
-        q, k, v = split_heads(q), split_heads(k), split_heads(v)
-        # fp32 logits + softmax for numeric stability under bf16 compute.
-        logits = jnp.einsum("...qhd,...khd->...hqk", q, k,
-                            preferred_element_type=jnp.float32, precision=PRECISION)
-        logits = logits * (head_dim ** -0.5)
-        if self.causal:
-            mask = jnp.tril(jnp.ones((seq, seq), dtype=bool))
-            logits = jnp.where(mask, logits, jnp.finfo(jnp.float32).min)
-        weights = jax.nn.softmax(logits, axis=-1).astype(self.dtype)
-        out = jnp.einsum("...hqk,...khd->...qhd", weights, v, precision=PRECISION)
-        out = out.reshape(*out.shape[:-2], self.width)
-        return _dense(self.quantized, self.width, self.dtype, "out_proj")(out)
-
-
-class ResidualBlock(nn.Module):
-    width: int
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    """The static shape of one residual attention block."""
     heads: int
     causal: bool
     quick_gelu: bool
     dtype: Dtype
-    fused_attention: bool = False
     ln_eps: float = 1e-5
-    quantized: bool = False
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray, _=None):
-        x = x + MultiHeadAttention(self.width, self.heads, self.causal, self.dtype,
-                                   self.fused_attention, self.quantized,
-                                   name="attn")(
-            LayerNormFp32(self.dtype, self.ln_eps, name="ln_1")(x))
-        h = LayerNormFp32(self.dtype, self.ln_eps, name="ln_2")(x)
-        h = _dense(self.quantized, 4 * self.width, self.dtype, "mlp_fc")(h)
-        h = quick_gelu(h) if self.quick_gelu else nn.gelu(h, approximate=False)
-        h = _dense(self.quantized, self.width, self.dtype, "mlp_proj")(h)
-        return x + h, None
+    attention_impl: Optional[str] = None
 
 
-class Transformer(nn.Module):
-    """Layer-scanned transformer: parameters carry a leading `layers` axis."""
-    width: int
-    layers: int
-    heads: int
-    causal: bool
-    quick_gelu: bool
-    dtype: Dtype
-    remat: Union[bool, str] = False
-    fused_attention: bool = False
-    ln_eps: float = 1e-5
-    quantized: bool = False
+def residual_block(x: jnp.ndarray, p: Params, spec: BlockSpec,
+                   calibrate: bool = False) -> Tuple[jnp.ndarray, Any]:
+    """Pre-LN block: x + attn(ln_1(x)), then x + mlp(ln_2(x)). Returns
+    (x, observed) where observed is the calibration tree or None."""
+    dtype = spec.dtype
+    attn_obs = {} if calibrate else None
+    mlp_obs = {} if calibrate else None
+    b, length, width = x.shape
+    head_dim = width // spec.heads
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        block_cls = ResidualBlock
-        if self.remat:
-            # remat=True: recompute everything (min memory). remat="dots":
-            # save matmul outputs, recompute elementwise only — the stash
-            # volume / recompute-FLOPs middle ground for training.
-            policy = (jax.checkpoint_policies.dots_with_no_batch_dims_saveable
-                      if self.remat == "dots" else None)
-            block_cls = nn.remat(block_cls, prevent_cse=False, policy=policy)
-        scanned = nn.scan(
-            block_cls,
-            variable_axes={"params": 0, "intermediates": 0},
-            split_rngs={"params": True},
-            length=self.layers,
-            metadata_params={nn.meta.PARTITION_NAME: "layers"},
-        )(self.width, self.heads, self.causal, self.quick_gelu, self.dtype,
-          self.fused_attention, self.ln_eps, self.quantized, name="blocks")
-        x, _ = scanned(x, None)
-        return x
+    h = layer_norm(x, p["ln_1"]["ln"], dtype, spec.ln_eps)
+    qkv = dense(h, p["attn"]["in_proj"], dtype, attn_obs, "in_proj")
+    q, k, v = (t.reshape(b, length, spec.heads, head_dim)
+               for t in jnp.split(qkv, 3, axis=-1))
+    a = attention(q, k, v, causal=spec.causal,
+                  implementation=spec.attention_impl).reshape(b, length, width)
+    x = x + dense(a, p["attn"]["out_proj"], dtype, attn_obs, "out_proj")
+
+    h = layer_norm(x, p["ln_2"]["ln"], dtype, spec.ln_eps)
+    h = dense(h, p["mlp_fc"], dtype, mlp_obs, "mlp_fc")
+    h = quick_gelu(h) if spec.quick_gelu else jax.nn.gelu(h, approximate=False)
+    x = x + dense(h, p["mlp_proj"], dtype, mlp_obs, "mlp_proj")
+    if not calibrate:
+        return x, None
+    return x, {"attn": attn_obs, **mlp_obs}
 
 
-class VisionTransformer(nn.Module):
-    config: VisionConfig
-    embed_dim: int
-    quick_gelu: bool
-    dtype: Dtype
-    remat: Union[bool, str] = False
-    fused_attention: bool = False
-    quantized: bool = False
-
-    @nn.compact
-    def __call__(self, images: jnp.ndarray) -> jnp.ndarray:
-        """images: (B, H, W, 3) in the model's expected (normalized) scale,
-        or uint8 if normalization has been folded into the patch kernel."""
-        cfg = self.config
-        b = images.shape[0]
-        g, p = cfg.grid_size, cfg.patch_size
-        x = images.astype(self.dtype)
-        # Unfold into patch vectors ordered (ph, pw, c) and project: one matmul
-        # on the MXU, bit-equivalent to a stride-p conv.
-        x = x.reshape(b, g, p, g, p, 3).transpose(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3)
-        x = nn.Dense(cfg.width, use_bias=True, dtype=self.dtype, param_dtype=jnp.float32,
-                     precision=PRECISION, name="patch_embed")(x)
-
-        class_embedding = self.param("class_embedding", nn.initializers.normal(0.02),
-                                     (cfg.width,), jnp.float32)
-        cls = jnp.broadcast_to(class_embedding.astype(self.dtype), (b, 1, cfg.width))
-        x = jnp.concatenate([cls, x], axis=1)
-        pos = self.param("positional_embedding", nn.initializers.normal(0.01),
-                         (cfg.num_patches + 1, cfg.width), jnp.float32)
-        x = x + pos.astype(self.dtype)
-
-        x = LayerNormFp32(self.dtype, name="ln_pre")(x)
-        x = Transformer(cfg.width, cfg.layers, cfg.heads, causal=False,
-                        quick_gelu=self.quick_gelu, dtype=self.dtype, remat=self.remat,
-                        fused_attention=self.fused_attention,
-                        quantized=self.quantized, name="transformer")(x)
-        x = LayerNormFp32(self.dtype, name="ln_post")(x[:, 0])
-        proj = self.param("proj", nn.initializers.normal(cfg.width ** -0.5),
-                          (cfg.width, self.embed_dim), jnp.float32)
-        return jnp.matmul(x, proj.astype(self.dtype), precision=PRECISION)
+def transformer(x: jnp.ndarray, blocks: Params, spec: BlockSpec,
+                remat: Union[bool, str] = False,
+                calibrate: bool = False) -> Tuple[jnp.ndarray, Any]:
+    """Scan ``residual_block`` over layer-stacked ``blocks``. remat=True
+    recomputes everything in the backward pass (least memory); remat="dots"
+    keeps the matmul outputs and recomputes only the elementwise work.
+    Returns (x, observed) with observed stacked along the layers."""
+    body = functools.partial(residual_block, spec=spec, calibrate=calibrate)
+    if remat:
+        policy = (jax.checkpoint_policies.dots_with_no_batch_dims_saveable
+                  if remat == "dots" else None)
+        body = jax.checkpoint(body, prevent_cse=False, policy=policy)
+    return jax.lax.scan(lambda h, p: body(h, p), x, blocks)
 
 
-class TextTransformer(nn.Module):
-    config: TextConfig
-    embed_dim: int
-    quick_gelu: bool
-    dtype: Dtype
-    remat: Union[bool, str] = False
-    fused_attention: bool = False
-    quantized: bool = False
-
-    @nn.compact
-    def __call__(self, input_ids: jnp.ndarray) -> jnp.ndarray:
-        """input_ids: (B, context_length) int32; the EOT token must carry the
-        maximum id in each row (CLIP BPE convention) — pooling is argmax(ids)."""
-        cfg = self.config
-        embedding = self.param("token_embedding", nn.initializers.normal(0.02),
-                               (cfg.vocab_size, cfg.width), jnp.float32)
-        x = embedding[input_ids].astype(self.dtype)
-        pos = self.param("positional_embedding", nn.initializers.normal(0.01),
-                         (cfg.context_length, cfg.width), jnp.float32)
-        x = x + pos[: x.shape[1]].astype(self.dtype)
-        x = Transformer(cfg.width, cfg.layers, cfg.heads, causal=True,
-                        quick_gelu=self.quick_gelu, dtype=self.dtype, remat=self.remat,
-                        fused_attention=self.fused_attention,
-                        quantized=self.quantized, name="transformer")(x)
-        x = LayerNormFp32(self.dtype, name="ln_final")(x)
-        eot = jnp.argmax(input_ids, axis=-1)
-        x = jnp.take_along_axis(x, eot[:, None, None], axis=1)[:, 0]
-        proj = self.param("text_projection", nn.initializers.normal(cfg.width ** -0.5),
-                          (cfg.width, self.embed_dim), jnp.float32)
-        return jnp.matmul(x, proj.astype(self.dtype), precision=PRECISION)
+def _ln_init(width: int) -> Params:
+    return {"ln": {"scale": jnp.ones((width,), jnp.float32),
+                   "bias": jnp.zeros((width,), jnp.float32)}}
 
 
-class CLIPModel(nn.Module):
+def init_blocks(rng, layers: int, width: int) -> Params:
+    """Layer-stacked block params: lecun-normal kernels, zero biases, unit
+    LayerNorms (the initializers a torch/flax Linear default to)."""
+    kernel_init = jax.nn.initializers.lecun_normal()
+    shapes = {"in_proj": (width, 3 * width), "out_proj": (width, width),
+              "mlp_fc": (width, 4 * width), "mlp_proj": (4 * width, width)}
+    keys = dict(zip(shapes, jax.random.split(rng, len(shapes))))
+
+    def linear(name):
+        fan_in, fan_out = shapes[name]
+        layer_keys = jax.random.split(keys[name], layers)
+        kernel = jax.vmap(lambda k: kernel_init(k, (fan_in, fan_out),
+                                                jnp.float32))(layer_keys)
+        return {"kernel": kernel,
+                "bias": jnp.zeros((layers, fan_out), jnp.float32)}
+
+    def stacked_ln():
+        return jax.tree_util.tree_map(
+            lambda a: jnp.broadcast_to(a, (layers,) + a.shape), _ln_init(width))
+
+    return {"attn": {"in_proj": linear("in_proj"), "out_proj": linear("out_proj")},
+            "ln_1": stacked_ln(), "ln_2": stacked_ln(),
+            "mlp_fc": linear("mlp_fc"), "mlp_proj": linear("mlp_proj")}
+
+
+def init_text_tower(rng, cfg: TextConfig, embed_dim: int) -> Params:
+    k_tok, k_pos, k_blocks, k_proj = jax.random.split(rng, 4)
+    return {
+        "token_embedding": 0.02 * jax.random.normal(
+            k_tok, (cfg.vocab_size, cfg.width), jnp.float32),
+        "positional_embedding": 0.01 * jax.random.normal(
+            k_pos, (cfg.context_length, cfg.width), jnp.float32),
+        "transformer": {"blocks": init_blocks(k_blocks, cfg.layers, cfg.width)},
+        "ln_final": _ln_init(cfg.width),
+        "text_projection": cfg.width ** -0.5 * jax.random.normal(
+            k_proj, (cfg.width, embed_dim), jnp.float32),
+    }
+
+
+def encode_text_tower(t: Params, input_ids: jnp.ndarray, cfg: TextConfig,
+                      spec: BlockSpec, remat: Union[bool, str] = False,
+                      calibrate: bool = False) -> Tuple[jnp.ndarray, Any]:
+    """(B, context) ids -> (B, embed_dim). The EOT token must carry the
+    largest id in each row (CLIP BPE convention): pooling is argmax(ids)."""
+    dtype = spec.dtype
+    x = t["token_embedding"][input_ids].astype(dtype)
+    x = x + t["positional_embedding"][: x.shape[1]].astype(dtype)
+    x, observed = transformer(x, t["transformer"]["blocks"], spec, remat,
+                              calibrate)
+    x = layer_norm(x, t["ln_final"]["ln"], dtype)
+    eot = jnp.argmax(input_ids, axis=-1)
+    x = jnp.take_along_axis(x, eot[:, None, None], axis=1)[:, 0]
+    x = jnp.matmul(x, t["text_projection"].astype(dtype), precision=PRECISION)
+    return x, ({"transformer": {"blocks": observed}} if calibrate else None)
+
+
+def unfold_patches(images: jnp.ndarray, patch: int) -> jnp.ndarray:
+    """(B, H, W, 3) -> (B, (H/p)*(W/p), p*p*3), patch vectors ordered
+    (ph, pw, c) like the converted patch kernels' rows."""
+    b, size = images.shape[0], images.shape[1]
+    g = size // patch
+    return images.reshape(b, g, patch, g, patch, 3).transpose(
+        0, 1, 3, 2, 4, 5).reshape(b, g * g, patch * patch * 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPModel:
+    """The CLIP ViT tower pair. ``attention_impl`` names an attention route
+    (ops/attention.py); None takes the backend's route."""
     config: CLIPConfig
     dtype: Dtype = jnp.float32
     remat: Union[bool, str] = False
-    fused_attention: bool = False
-    quantized: bool = False
+    attention_impl: Optional[str] = None
 
-    def setup(self):
-        self.visual = VisionTransformer(self.config.vision, self.config.embed_dim,
-                                        self.config.quick_gelu, self.dtype, self.remat,
-                                        self.fused_attention, self.quantized)
-        self.text = TextTransformer(self.config.text, self.config.embed_dim,
-                                    self.config.quick_gelu, self.dtype, self.remat,
-                                    self.fused_attention, self.quantized)
+    def _spec(self, heads: int, causal: bool) -> BlockSpec:
+        return BlockSpec(heads=heads, causal=causal,
+                         quick_gelu=self.config.quick_gelu, dtype=self.dtype,
+                         attention_impl=self.attention_impl)
 
-    def encode_image(self, images: jnp.ndarray) -> jnp.ndarray:
-        return self.visual(images)
+    def init(self, rng) -> Params:
+        cfg = self.config
+        v = cfg.vision
+        k_patch, k_cls, k_pos, k_blocks, k_proj, k_text = jax.random.split(rng, 6)
+        patch_in = v.patch_size * v.patch_size * 3
+        visual = {
+            "patch_embed": {
+                "kernel": jax.nn.initializers.lecun_normal()(
+                    k_patch, (patch_in, v.width), jnp.float32),
+                "bias": jnp.zeros((v.width,), jnp.float32)},
+            "class_embedding": 0.02 * jax.random.normal(k_cls, (v.width,), jnp.float32),
+            "positional_embedding": 0.01 * jax.random.normal(
+                k_pos, (v.num_patches + 1, v.width), jnp.float32),
+            "ln_pre": _ln_init(v.width),
+            "transformer": {"blocks": init_blocks(k_blocks, v.layers, v.width)},
+            "ln_post": _ln_init(v.width),
+            "proj": v.width ** -0.5 * jax.random.normal(
+                k_proj, (v.width, cfg.embed_dim), jnp.float32),
+        }
+        return {"visual": visual,
+                "text": init_text_tower(k_text, cfg.text, cfg.embed_dim)}
 
-    def encode_text(self, input_ids: jnp.ndarray) -> jnp.ndarray:
-        return self.text(input_ids)
+    def _encode_image(self, params: Params, images: jnp.ndarray,
+                      calibrate: bool) -> Tuple[jnp.ndarray, Any]:
+        cfg, dtype = self.config.vision, self.dtype
+        v = params["visual"]
+        b = images.shape[0]
+        x = unfold_patches(images.astype(dtype), cfg.patch_size)
+        x = dense(x, v["patch_embed"], dtype)
+        cls = jnp.broadcast_to(v["class_embedding"].astype(dtype), (b, 1, cfg.width))
+        x = jnp.concatenate([cls, x], axis=1)
+        x = x + v["positional_embedding"].astype(dtype)
+        x = layer_norm(x, v["ln_pre"]["ln"], dtype)
+        x, observed = transformer(x, v["transformer"]["blocks"],
+                                  self._spec(cfg.heads, causal=False),
+                                  self.remat, calibrate)
+        x = layer_norm(x[:, 0], v["ln_post"]["ln"], dtype)
+        x = jnp.matmul(x, v["proj"].astype(dtype), precision=PRECISION)
+        return x, ({"visual": {"transformer": {"blocks": observed}}}
+                   if calibrate else None)
 
-    def __call__(self, images: jnp.ndarray, input_ids: jnp.ndarray):
-        return self.encode_image(images), self.encode_text(input_ids)
+    def _encode_text(self, params: Params, input_ids: jnp.ndarray,
+                     calibrate: bool) -> Tuple[jnp.ndarray, Any]:
+        cfg = self.config.text
+        x, observed = encode_text_tower(params["text"], input_ids, cfg,
+                                        self._spec(cfg.heads, causal=True),
+                                        self.remat, calibrate)
+        return x, ({"text": observed} if calibrate else None)
+
+    def encode_image(self, params: Params, images: jnp.ndarray) -> jnp.ndarray:
+        """images: (B, H, W, 3) normalized floats, or uint8 pixels when the
+        normalization is folded into the patch kernel."""
+        return self._encode_image(params, images, calibrate=False)[0]
+
+    def encode_text(self, params: Params, input_ids: jnp.ndarray) -> jnp.ndarray:
+        return self._encode_text(params, input_ids, calibrate=False)[0]
+
+    def image_act_amax(self, params: Params, images: jnp.ndarray) -> Params:
+        """Calibration observation of an int8 tree: every quantized dense runs
+        dynamic quantization and reports its input abs-max."""
+        return self._encode_image(params, images, calibrate=True)[1]
+
+    def text_act_amax(self, params: Params, input_ids: jnp.ndarray) -> Params:
+        return self._encode_text(params, input_ids, calibrate=True)[1]
 
 
 def fold_pixel_normalization(params, mean, std, scale_255: bool = True):

@@ -15,7 +15,8 @@ import jax
 import jax.numpy as jnp
 
 from fitclip_tpu.models.clip.encoder import ClipVideoTextEncoder
-from fitclip_tpu.models.clip.model import TextConfig, TextTransformer
+from fitclip_tpu.models.clip.model import (BlockSpec, TextConfig,
+                                           encode_text_tower, init_text_tower)
 from fitclip_tpu.models.clip.resnet import (ModifiedResNet, ModifiedResNetConfig,
                                             resnet_params_from_torch)
 
@@ -61,28 +62,23 @@ RESNET_PRESETS = {
 
 
 class ResNetCLIPModel(nn.Module):
+    """The ModifiedResNet vision tower (a flax module, because of its
+    BatchNorm state). The text tower is the plain CLIP text transformer
+    (models/clip/model.py), kept under params["text"]."""
     config: ResNetCLIPConfig
     dtype: object = jnp.float32
     train_bn: bool = False
 
     def setup(self):
         # dtype is the compute dtype for BOTH towers (params stay fp32):
-        # fp32 HIGHEST convs are multi-pass emulated on v5e, so bf16 here is
-        # the throughput configuration (++encoder.dtype=bfloat16); fp32 stays
-        # the oracle-parity default. BN statistics math is fp32 either way.
+        # bf16 is the throughput configuration (++encoder.dtype=bfloat16);
+        # fp32 stays the oracle-parity default. BN statistics math is fp32
+        # either way.
         self.visual = ModifiedResNet(self.config.vision, train=self.train_bn,
                                      dtype=self.dtype)
-        self.text = TextTransformer(self.config.text, self.config.embed_dim,
-                                    self.config.quick_gelu, self.dtype)
 
-    def encode_image(self, images):
+    def __call__(self, images):
         return self.visual(images.astype(self.dtype))
-
-    def encode_text(self, input_ids):
-        return self.text(input_ids)
-
-    def __call__(self, images, input_ids):
-        return self.encode_image(images), self.encode_text(input_ids)
 
 
 class ResNetClipVideoTextEncoder(ClipVideoTextEncoder):
@@ -130,9 +126,13 @@ class ResNetClipVideoTextEncoder(ClipVideoTextEncoder):
 
     def init_params(self, rng):
         size = self.config.vision.input_resolution
-        return self.model.init(rng, jnp.zeros((1, size, size, 3)),
-                               jnp.zeros((1, self.config.text.context_length),
-                                         jnp.int32))["params"]
+        rng_visual, rng_text = jax.random.split(rng)
+        params = self.model.init(rng_visual, jnp.zeros((1, size, size, 3)))["params"]
+        return {**params, "text": init_text_tower(rng_text, self.config.text,
+                                                  self.config.embed_dim)}
+
+    def _visual_params(self, params):
+        return {"params": {"visual": params["visual"]}}
 
     def _frames(self, video):
         if video.dtype == jnp.uint8:
@@ -146,9 +146,7 @@ class ResNetClipVideoTextEncoder(ClipVideoTextEncoder):
         from fitclip_tpu.models.clip.encoder import l2_normalize
 
         frames, b, t = self._frames(video)
-        emb = self.model.apply({"params": params}, frames,
-                               method=ResNetCLIPModel.encode_image)
-        emb = l2_normalize(emb)
+        emb = l2_normalize(self.model.apply(self._visual_params(params), frames))
         return emb.reshape(b, t, -1).mean(axis=1)
 
     def encode_video_train(self, params, video):
@@ -159,8 +157,7 @@ class ResNetClipVideoTextEncoder(ClipVideoTextEncoder):
 
         frames, b, t = self._frames(video)
         emb, mutated = self.train_model.apply(
-            {"params": params}, frames, method=ResNetCLIPModel.encode_image,
-            mutable=["bn_stats"])
+            self._visual_params(params), frames, mutable=["bn_stats"])
         emb = l2_normalize(emb)
         return emb.reshape(b, t, -1).mean(axis=1), mutated["bn_stats"]
 
@@ -188,8 +185,11 @@ class ResNetClipVideoTextEncoder(ClipVideoTextEncoder):
     def encode_text(self, params, text):
         from fitclip_tpu.models.clip.encoder import l2_normalize
 
-        emb = self.model.apply({"params": params}, text,
-                               method=ResNetCLIPModel.encode_text)
+        cfg = self.config.text
+        spec = BlockSpec(heads=cfg.heads, causal=True,
+                         quick_gelu=self.config.quick_gelu,
+                         dtype=self.model.dtype)
+        emb, _ = encode_text_tower(params["text"], text, cfg, spec)
         return l2_normalize(emb)
 
 

@@ -12,6 +12,8 @@ import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from fitclip_tpu.ops.attention import attention
+
 PRECISION = jax.lax.Precision.HIGHEST
 
 
@@ -63,13 +65,7 @@ class TransformerBlock(nn.Module):
         q = heads(dense(cfg.dim, "attention_q_lin")(x))
         k = heads(dense(cfg.dim, "attention_k_lin")(x))
         v = heads(dense(cfg.dim, "attention_v_lin")(x))
-        logits = jnp.einsum("bqhd,bkhd->bhqk", q, k, precision=PRECISION,
-                            preferred_element_type=jnp.float32) / (head_dim ** 0.5)
-        logits = jnp.where(attention_mask[:, None, None, :] > 0, logits,
-                           jnp.finfo(jnp.float32).min)
-        weights = jax.nn.softmax(logits, axis=-1).astype(x.dtype)
-        attn = jnp.einsum("bhqk,bkhd->bqhd", weights, v, precision=PRECISION)
-        attn = attn.reshape(*x.shape)
+        attn = attention(q, k, v, key_mask=attention_mask > 0).reshape(*x.shape)
         attn = dense(cfg.dim, "attention_out_lin")(attn)
         x = _LayerNorm(name="sa_layer_norm")(x + attn)
 
@@ -81,7 +77,7 @@ class TransformerBlock(nn.Module):
 
 class DistilBertModel(nn.Module):
     config: DistilBertConfig
-    # fp32 (default) = torch-oracle parity; bf16 = production TPU eval
+    # fp32 (default) = torch-oracle parity; bf16 = throughput eval
     # (LayerNorms/softmax stay fp32 either way).
     dtype: jnp.dtype = jnp.float32
 

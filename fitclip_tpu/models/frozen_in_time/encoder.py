@@ -57,21 +57,14 @@ class FrozenInTimeVideoTextEncoder(VideoTextEncoder):
     def __init__(self, config: Optional[FrozenInTimeConfig] = None,
                  num_frames: int = 4, max_tokens: int = 77,
                  tokenizer=None, vocab_path: Optional[str] = None,
-                 dtype=jnp.float32,
-                 fused_attention: Optional[bool] = None,
-                 fused_block: Optional[bool] = None) -> None:
+                 dtype=jnp.float32) -> None:
         # dtype: fp32 (default) matches the torch oracle to <=1e-4; bf16 is
-        # the production TPU eval config (measured 67 -> see BASELINE.md;
-        # fp32 HIGHEST matmuls are multi-pass-emulated on v5e); "int8" runs
-        # the VIDEO tower's qkv/proj/mlp denses as W8A8 (bf16 activations,
-        # calibrated static activation scales — ops/quant.py, same scheme as
-        # the CLIP/SLIP int8 paths; the DistilBERT text tower stays bf16 —
-        # it is ~5% of the eval FLOPs). Both towers' LayerNorms and softmaxes
-        # stay fp32 regardless.
-        # fused_attention (default: on for the TPU backend, as on the CLIP/
-        # SLIP loaders): the SPACE attention runs through the Pallas fused
-        # kernel with the CLS row folded into each frame group; fused-vs-
-        # einsum equivalence is tested (tests/test_frozen_in_time.py).
+        # the throughput config; "int8" runs the VIDEO tower's qkv/proj/mlp
+        # denses as W8A8 (bf16 activations, calibrated static activation
+        # scales — ops/quant.py, same scheme as the CLIP/SLIP int8 paths; the
+        # DistilBERT text tower stays bf16). Both towers' LayerNorms and
+        # softmaxes stay fp32 regardless. The divided space/time attention
+        # runs its einsum formulation (video_transformer.VarAttention).
         self.config = config or FrozenInTimeConfig()
         cfg = self.config
         self.quantized = str(dtype) == "int8"
@@ -85,21 +78,11 @@ class FrozenInTimeVideoTextEncoder(VideoTextEncoder):
                                  f"one of {sorted(_DTYPES)} or 'int8'")
             dtype = _DTYPES[dtype]
         self.dtype = dtype
-        if fused_attention is None:
-            fused_attention = jax.default_backend() == "tpu"
-        self.fused_attention = fused_attention
-        # fused_block (as on the CLIP/SLIP encoders): quantized + fused
-        # attention defaults to the whole-SpaceTimeBlock int8 Pallas
-        # megakernel for the video tower (ops/fit_block.py — one kernel per
-        # residual block, weights VMEM-resident, activations leave VMEM once
-        # per layer). fused_block=False pins the separate-op int8 path.
-        self.fused_block = (self.quantized and fused_attention
-                            if fused_block is None else fused_block)
         self.video_model = SpaceTimeTransformer(
             embed_dim=cfg.embed_dim, depth=cfg.depth, num_heads=cfg.num_heads,
             patch_size=cfg.patch_size, img_size=cfg.img_size,
             num_frames=cfg.num_frames, dtype=self.dtype,
-            fused_attention=fused_attention, quantized=self.quantized)
+            quantized=self.quantized)
         self.text_model = DistilBertModel(cfg.text, dtype=self.dtype)
         self._tokenizer = tokenizer
         self._vocab_path = vocab_path
@@ -154,18 +137,14 @@ class FrozenInTimeVideoTextEncoder(VideoTextEncoder):
         """One int8-calibration observation: the video tower in DYNAMIC-quant
         mode (per-row scales), returning the sown activation abs-max tree
         keyed like the params tree (consumed by the CLI runners' multi-batch
-        calibration + ops.quant.apply_act_scales). The einsum attention path
-        is used so each quantized dense sows exactly once per call; its dense
-        inputs are identical tensors to the fused path's (the fused path only
-        splits the qkv projection over CLS/patch rows), so the scales
-        transfer. The text tower is not quantized — `text` is ignored."""
+        calibration + ops.quant.apply_act_scales). The text tower is not
+        quantized — `text` is ignored."""
         assert self.quantized, "calibration requires a quantized encoder"
         cfg = self.config
         dynamic_model = SpaceTimeTransformer(
             embed_dim=cfg.embed_dim, depth=cfg.depth, num_heads=cfg.num_heads,
             patch_size=cfg.patch_size, img_size=cfg.img_size,
-            num_frames=cfg.num_frames, dtype=self.dtype,
-            fused_attention=False, quantized="dynamic")
+            num_frames=cfg.num_frames, dtype=self.dtype, quantized="dynamic")
         _, state = dynamic_model.apply({"params": params["video"]},
                                        self._prepare_video(video),
                                        mutable=["intermediates"])
@@ -180,31 +159,8 @@ class FrozenInTimeVideoTextEncoder(VideoTextEncoder):
             params, self.collect_act_amax(params, video, text), margin=margin)
 
     def encode_video(self, params, video: jnp.ndarray) -> jnp.ndarray:
-        video = self._prepare_video(video)
-        if self.fused_block:
-            import os
-
-            from fitclip_tpu.models.frozen_in_time.fit_fast import (
-                encode_video_features_fast)
-
-            # pad8 (round-4): sublane-aligned frame groups, measured
-            # +1.9% e2e over the 1+F*P joint layout (585 vs 574 clips/s,
-            # 2 interleaved rounds, scripts/bench_fit_e2e_ab.py);
-            # parity-pinned in tests/test_fit_fast.py. FIT_PAD8=0 opts out.
-            # FIT_VARIANT picks the kernel variant (ops/fit_block.py). The
-            # round-5 default composes the measured winners (850 vs 585
-            # clips/s e2e, 2 interleaved rounds, scripts/bench_fit_e2e_ab):
-            # MXU time attention + heads-packed space attention with the
-            # concat CLS join + packed CLS global row. All parity-exact vs
-            # "full" (tests/test_fit_fast.py).
-            features = encode_video_features_fast(
-                params["video"], video, self.config, dtype=self.dtype,
-                pad8=os.environ.get("FIT_PAD8", "1") != "0",
-                variant=os.environ.get(
-                    "FIT_VARIANT", "timemxu+spacepack+spacecat+clspack"))
-        else:
-            features = self.video_model.apply({"params": params["video"]},
-                                              video)
+        features = self.video_model.apply({"params": params["video"]},
+                                          self._prepare_video(video))
         projected = jnp.matmul(features, params["vid_proj"]["kernel"],
                                precision=PRECISION) + params["vid_proj"]["bias"]
         return _eps_normalize(projected)
@@ -320,23 +276,17 @@ def load_frozen_in_time_encoder(checkpoint_path: Optional[str] = None,
                                 num_frames: int = 4, max_tokens: int = 77,
                                 vocab_path: Optional[str] = None,
                                 temporal_inflation: str = "zeros", seed: int = 0,
-                                dtype: str = "float32",
-                                fused_attention: Optional[bool] = None,
-                                fused_block: Optional[bool] = None):
+                                dtype: str = "float32"):
     """config/encoder/frozen_in_time* factory. ++encoder.dtype=bfloat16
-    selects the fast TPU eval configuration (see FrozenInTimeVideoTextEncoder)
+    selects the throughput configuration (see FrozenInTimeVideoTextEncoder)
     and ++encoder.dtype=int8 the W8A8 video-tower path (the CLI runners
-    calibrate activation scales on the first eval batches, cli/runners.py);
-    ++encoder.fused_attention=false pins the einsum oracle-parity attention
-    (the default is backend-dependent: fused on TPU)."""
+    calibrate activation scales on the first eval batches, cli/runners.py)."""
     from fitclip_tpu.models.clip.load import LoadedEncoder
 
     config = FrozenInTimeConfig(num_frames=num_frames)
     encoder = FrozenInTimeVideoTextEncoder(config, num_frames=num_frames,
                                            max_tokens=max_tokens,
-                                           vocab_path=vocab_path, dtype=dtype,
-                                           fused_attention=fused_attention,
-                                           fused_block=fused_block)
+                                           vocab_path=vocab_path, dtype=dtype)
     if checkpoint_path:
         from fitclip_tpu.convert.torch_state_dict import load_torch_state_dict
 

@@ -31,8 +31,7 @@ class LayerNormTorch(nn.Module):
         bias = self.param("bias", nn.initializers.zeros, (dim,))
         xf = x.astype(jnp.float32)
         # Two-pass form reusing `centered` (same biased variance as
-        # torch/jnp.var, which recomputes the mean internally — profiled at
-        # an extra full-tensor pass per LN on this 785-token layout).
+        # torch/jnp.var, which recomputes the mean internally).
         mean = xf.mean(-1, keepdims=True)
         centered = xf - mean
         var = (centered * centered).mean(-1, keepdims=True)
@@ -57,38 +56,53 @@ def _cls_global_attention(qkv, heads: int, dim: int):
     return out.reshape(b, 1, dim).astype(qkv.dtype)
 
 
-def _cls_global_attention_split(qkv_cls, qkv_patch, heads: int, dim: int):
-    """_cls_global_attention over a split projection (CLS row and patch rows
-    projected separately): softmax over [cls | patches], same key order as
-    the combined sequence. Returns (B, 1, dim)."""
-    b = qkv_cls.shape[0]
-    d = dim // heads
-    cls_q = qkv_cls[:, 0, :dim].reshape(b, heads, d) * (d ** -0.5)
-    cls_k = qkv_cls[:, 0, dim:2 * dim].reshape(b, heads, d)
-    cls_v = qkv_cls[:, 0, 2 * dim:].reshape(b, heads, d)
-    k = qkv_patch[:, :, dim:2 * dim].reshape(b, -1, heads, d)
-    v = qkv_patch[:, :, 2 * dim:].reshape(b, -1, heads, d)
-    l_cls = jnp.einsum("bhd,bhd->bh", cls_q, cls_k, precision=PRECISION,
-                       preferred_element_type=jnp.float32)[..., None]
-    l_pat = jnp.einsum("bhd,bnhd->bhn", cls_q, k, precision=PRECISION,
-                       preferred_element_type=jnp.float32)
-    w = jax.nn.softmax(jnp.concatenate([l_cls, l_pat], axis=-1),
-                       axis=-1).astype(v.dtype)
-    out = jnp.einsum("bh,bhd->bhd", w[..., 0], cls_v, precision=PRECISION,
-                     preferred_element_type=jnp.float32)
-    out = out + jnp.einsum("bhn,bnhd->bhd", w[..., 1:], v, precision=PRECISION,
-                           preferred_element_type=jnp.float32)
-    return out.reshape(b, 1, dim).astype(qkv_cls.dtype)
+class QuantDense(nn.Module):
+    """int8 W8A8 dense (ops/quant.py). Init yields zero weights — real
+    parameters arrive via quantize_fit_video_params on a float tree.
+
+    Static mode (default) quantizes with the calibrated per-tensor
+    ``act_scale``; ``dynamic`` computes per-row scales on the fly (the
+    calibration mode). Every call sows the observed activation abs-max so a
+    calibration pass (mutable=["intermediates"]) can collect scales."""
+    features: int
+    dtype: Any
+    dynamic: bool = False
+
+    @nn.compact
+    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
+        from fitclip_tpu.ops.quant import int8_dense, int8_dense_static
+
+        kernel_q = self.param("kernel_q", nn.initializers.zeros,
+                              (x.shape[-1], self.features), jnp.int8)
+        scale = self.param("scale", nn.initializers.ones,
+                           (self.features,), jnp.float32)
+        bias = self.param("bias", nn.initializers.zeros,
+                          (self.features,), jnp.float32)
+        act_scale = self.param("act_scale", nn.initializers.ones,
+                               (1,), jnp.float32)
+        amax = jnp.max(jnp.abs(x.astype(jnp.float32))).reshape(1)
+        self.sow("intermediates", "act_amax", amax)
+        if self.dynamic:
+            return int8_dense(x.astype(self.dtype), kernel_q, scale, bias)
+        return int8_dense_static(x.astype(self.dtype), kernel_q, scale, bias,
+                                 act_scale)
+
+
+def _dense(quantized, features: int, dtype, name: str):
+    """quantized: False (float Dense), True ("static" int8) or "dynamic"."""
+    if quantized:
+        return QuantDense(features, dtype, dynamic=(quantized == "dynamic"),
+                          name=name)
+    return nn.Dense(features, dtype=dtype, param_dtype=jnp.float32,
+                    precision=PRECISION, name=name)
 
 
 class VarAttention(nn.Module):
     """Attention over a chosen axis (time or space) with global CLS
     (video_transformer.py:81-138).
 
-    Layout-free formulation (profiled: the previous head-fold/regroup/
-    ungroup transposes plus the CLS repeat+concat of K/V cost ~64 ms of
-    pure copies/reshapes/slices per 32-clip eval call — a third of the
-    forward). Heads and groups ride dot_general BATCH dims via einsum, so
+    Layout-free formulation: heads and groups ride dot_general BATCH dims
+    via einsum (no head-fold/regroup transposes, no repeated K/V), so
     the only data movement is pure reshapes; the CLS key/value joins each
     group in LOGIT space (one lane-axis concat of the scores) instead of
     materializing repeated K/V tensors. Same math: softmax over
@@ -97,13 +111,6 @@ class VarAttention(nn.Module):
     dim: int
     num_heads: int
     dtype: jnp.dtype = jnp.float32
-    # fused=True runs the SPACE attention through the Pallas fused-attention
-    # kernel (ops/attention.py) with the CLS row folded into each frame group
-    # — (B*F, 1+P, 3D) is exactly the CLIP ViT eval shape the kernel is
-    # gated on, and the (P, 1+P) fp32 logits stay in VMEM instead of ~240 MB
-    # of HBM softmax traffic per eval call. Inference-oriented (FiT is
-    # eval-only here); einsum remains the oracle-parity default.
-    fused: bool = False
     # quantized: False (float denses), True (int8 W8A8 with calibrated static
     # activation scales) or "dynamic" (per-row scales — calibration mode).
     # Only the qkv/proj/mlp denses quantize; LN/softmax/attention stay
@@ -112,52 +119,10 @@ class VarAttention(nn.Module):
 
     @nn.compact
     def __call__(self, x, mode: str, frames: int, patches: int):
-        from fitclip_tpu.models.clip.model import _dense
-
         h = self.num_heads
         d = self.dim // h
         b, n, _ = x.shape
-        qkv_dense = _dense(self.quantized, 3 * self.dim, self.dtype,
-                           name="qkv")
-
-        if self.fused:
-            from fitclip_tpu.ops.attention import fused_attention_qkv_gkv
-
-            # The qkv projection runs SEPARATELY on the CLS row and the
-            # patch rows (same module → shared params): slicing the patch
-            # block out of a combined (B, N, 3W) projection afterwards
-            # costs a full relayout pass of the 3x-wide tensor (profiled
-            # ~6 ms/call), while x[:, 1:] slices the 1x-wide input once
-            # and the group reshape below becomes a pure view.
-            qkv_cls = qkv_dense(x[:, :1])         # (B, 1, 3D)
-            qkv_patch = qkv_dense(x[:, 1:])       # (B, F·P, 3D)
-            D = self.dim
-            if mode == "space":
-                # Per-frame groups + the clip's CLS qkv as the kernel's
-                # GLOBAL key/value row (the reference's concat semantics,
-                # without materializing a (groups, 1+P, 3W) concat in HBM
-                # or slicing the CLS row back off the output).
-                groups = qkv_patch.reshape(b * frames, patches, 3 * D)
-                gkv = jnp.broadcast_to(qkv_cls, (b, frames, 3 * D)) \
-                         .reshape(b * frames, 3 * D)
-                out = fused_attention_qkv_gkv(groups, gkv, h, d ** -0.5)
-                out = out.reshape(b, frames * patches, D)
-            else:
-                # Natural-layout time kernel: no time-major relayout at all
-                # — per-(frame, frame) logits are VPU lane-reductions over
-                # row slices inside VMEM (measured 0.93 vs 1.40 ms/layer
-                # for the transpose + grouped-kernel formulation it
-                # replaced, transposes included).
-                from fitclip_tpu.ops.attention import fused_time_attention
-
-                out = fused_time_attention(qkv_patch, qkv_cls[:, 0], h,
-                                           frames, d ** -0.5)
-            cls_out = _cls_global_attention_split(qkv_cls, qkv_patch, h, D)
-            out = jnp.concatenate([cls_out, out], axis=1).astype(x.dtype)
-            return _dense(self.quantized, self.dim, self.dtype,
-                          name="proj")(out)
-
-        qkv = qkv_dense(x)
+        qkv = _dense(self.quantized, 3 * self.dim, self.dtype, name="qkv")(x)
 
         q, k, v = jnp.split(qkv, 3, axis=-1)
         q = q.reshape(b, n, h, d) * (d ** -0.5)
@@ -175,9 +140,7 @@ class VarAttention(nn.Module):
         if mode == "time":  # attend over frames at each spatial location
             # ONE explicit relayout to time-major (B, P, H, F, d) per
             # operand; every contraction below is then a native batched
-            # matmul with its batch dims leading (exotic einsum output
-            # orders here measured as several hidden XLA transposes of the
-            # full 38 MB tensors per block).
+            # matmul with its batch dims leading.
             tq = q_.transpose(0, 2, 3, 1, 4)
             tk = k_.transpose(0, 2, 3, 1, 4)
             tv = v_.transpose(0, 2, 3, 1, 4)
@@ -224,20 +187,15 @@ class SpaceTimeBlock(nn.Module):
     dim: int
     num_heads: int
     dtype: jnp.dtype = jnp.float32
-    fused_attention: bool = False
     quantized: Any = False
 
     @nn.compact
     def __call__(self, x, frames: int, patches: int):
-        from fitclip_tpu.models.clip.model import _dense
-
         time_out = VarAttention(self.dim, self.num_heads, dtype=self.dtype,
-                                fused=self.fused_attention,
                                 quantized=self.quantized, name="timeattn")(
             LayerNormTorch(name="norm3")(x), "time", frames, patches)
         time_residual = x + time_out
         space_out = VarAttention(self.dim, self.num_heads, dtype=self.dtype,
-                                 fused=self.fused_attention,
                                  quantized=self.quantized, name="attn")(
             LayerNormTorch(name="norm1")(time_residual), "space", frames, patches)
         space_residual = x + space_out  # frozen-in-time: residual from the input
@@ -259,10 +217,8 @@ class SpaceTimeTransformer(nn.Module):
     img_size: int = 224
     num_frames: int = 4
     # Compute dtype: fp32 (default) is the torch-oracle parity configuration;
-    # bf16 is the production TPU eval configuration (fp32 HIGHEST matmuls are
-    # ~6x emulated-pass cost on v5e). LayerNorms/softmax stay fp32 either way.
+    # bf16 the throughput one. LayerNorms/softmax stay fp32 either way.
     dtype: jnp.dtype = jnp.float32
-    fused_attention: bool = False
     quantized: Any = False
 
     @nn.compact
@@ -295,7 +251,6 @@ class SpaceTimeTransformer(nn.Module):
 
         for i in range(self.depth):
             x = SpaceTimeBlock(self.embed_dim, self.num_heads, dtype=self.dtype,
-                               fused_attention=self.fused_attention,
                                quantized=self.quantized,
                                name=f"blocks_{i}")(
                 x, frames=f, patches=patches_per_frame)

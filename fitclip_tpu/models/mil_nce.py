@@ -137,13 +137,6 @@ class MilNceVideoTextEncoder(VideoTextEncoder):
             max_tokens=max_tokens,
         )
 
-    @property
-    def uses_pallas(self) -> bool:
-        """The fast eval forward routes the s2d stem through a Pallas kernel
-        on TPU (ops/s3dg_stem.py) — multi-chip eval must shard_map it
-        (GSPMD cannot partition a pallas_call, cli/runners.py)."""
-        return self.fast and jax.default_backend() == "tpu"
-
     def init_params(self, rng):
         rng_v, rng_t = jax.random.split(rng)
         video = self.video_model.init(
@@ -167,16 +160,12 @@ class MilNceVideoTextEncoder(VideoTextEncoder):
         return self.video_model.apply({"params": params["video"]}, video)
 
     def quantize_params(self, params) -> dict:
-        import os
-
         from fitclip_tpu.models.s3dg_fast import quantize_s3dg_fast
 
-        # S3DG_INT8_FROM picks the first quantized block (measurement knob;
-        # the default skips the bandwidth-bound 56^2/28^2 stages — see
-        # quantize_s3dg_fast's measured-negative note).
-        return {"video": quantize_s3dg_fast(
-                    params["video"],
-                    from_block=os.environ.get("S3DG_INT8_FROM", "mixed_4b")),
+        # Quantize from mixed_4b on: the 56^2/28^2 stages are bandwidth-bound
+        # (see quantize_s3dg_fast).
+        return {"video": quantize_s3dg_fast(params["video"],
+                                            from_block="mixed_4b"),
                 "text": params["text"]}
 
     def collect_act_amax(self, params, video: jnp.ndarray,

@@ -1,10 +1,9 @@
 """Fast-eval S3DG forward: same parameter tree as `models/s3dg.py`'s Flax
-module, restructured for the TPU memory system.
+module, restructured to read each activation fewer times.
 
-The device trace (scripts/profile_s3dg.py) shows the Flax forward spends
-its non-stem time in many narrow ops: every Inception block launches three
-independent 1x1x1 convs over the SAME input (output widths as small as 16
-— 12% MXU column occupancy), a BatchNorm affine pass per conv, and four
+The Flax forward spends its non-stem time in many narrow ops: every
+Inception block launches three independent 1x1x1 convs over the SAME input
+(output widths as small as 16), a BatchNorm affine pass per conv, and four
 per-branch gating multiplies. This forward:
 
   * folds the frozen BatchNorm affines into the conv kernels (fp32 fold,
@@ -79,41 +78,20 @@ def _gate(params, pooled):
 
 
 def _spatial_mean(x):
-    """(B, T, H, W, C) -> (B, C) fp32 mean over (T, H, W) as a ones-vector
-    MXU contraction. The XLA convert+reduce fusion for the same read
-    measured ~99 GB/s on v5e (1.56 ms for conv_2c's 154 MB activation,
-    profile_s3dg round-5); the matmul form streams at HBM rate with fp32
-    accumulation on the MXU. Same values as mean(dtype=float32) up to
-    summation order. Interleaved e2e A/B (scripts/bench_s3dg_e2e_ab.py)
-    measured the MXU form slightly NEGATIVE in-model (-0.9%: the isolated
-    99 GB/s reduce overlaps with neighbors that the dot form serializes
-    against), so the plain reduce is the default; S3DG_MEANMM=1 opts in."""
-    import os
-
-    if os.environ.get("S3DG_MEANMM", "0") == "0":
-        return x.mean(axis=tuple(range(1, x.ndim - 1)), dtype=jnp.float32)
-    b, c = x.shape[0], x.shape[-1]
-    rows = 1
-    for d in x.shape[1:-1]:
-        rows *= d
-    flat = x.reshape(b, rows, c)
-    ones = jnp.ones((rows,), x.dtype)
-    total = jax.lax.dot_general(
-        ones, flat, dimension_numbers=(((0,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32)
-    return total / rows
+    """(B, T, H, W, C) -> (B, C) fp32 mean over (T, H, W)."""
+    return x.mean(axis=tuple(range(1, x.ndim - 1)), dtype=jnp.float32)
 
 
 # ---------------------------------------------------------------------------
-# W8A8 on the tower's matmul-shaped convs (round-4, VERDICT r3 #4).
+# W8A8 on the tower's matmul-shaped convs.
 #
 # After the merged-branch restructuring every Inception block's 1x1x1 convs
 # are plain (rows, C_in) @ (C_in, C_out) matmuls over the flattened
 # spatio-temporal axes — exactly the shape class ops/quant.py already
 # handles for the transformer families. Quantized sites: conv_2b, each
 # block's merged branch stem, each block's post-pool b3 conv, and the final
-# FC. The separable 3D convs (conv_2c, conv_b1_b/conv_b2_b) and the Pallas
-# stem stay in the compute dtype. Calibration rides the generic K-batch
+# FC. The separable 3D convs (conv_2c, conv_b1_b/conv_b2_b) and the stem
+# stay in the compute dtype. Calibration rides the generic K-batch
 # machinery (merge_act_amax / apply_act_scales / save_act_scales): the
 # "int8" subtree's {act_scale} nodes and the mirrored {"act_amax": (x,)}
 # collection tree are the same shapes cli/runners.py drives for CLIP.
@@ -135,12 +113,11 @@ def quantize_s3dg_fast(params, from_block: str = "mixed_4b") -> dict:
     per-tensor activation scales, ones until calibrated).
 
     from_block bounds quantization to blocks from that point on (+ the FC):
-    quantizing EVERY site measured NEGATIVE on v5e (MIL-NCE 1512 vs 1675
-    bf16 clips/s) — the 56^2-stage sites are bandwidth-bound (400k
-    activation rows, 64-192 channels) and the extra quantize/requant passes
-    outweigh the narrow int8 matmuls. From mixed_4b the spatial grid is
-    14^2 (~12k rows, 480-832 channels): matmul-bound. from_block=None or
-    "conv_2b" quantizes everything (the measured-negative ablation arm)."""
+    the 56^2-stage sites are bandwidth-bound (400k activation rows, 64-192
+    channels), where the extra quantize/requant passes cost more than the
+    narrow int8 matmuls save. From mixed_4b the spatial grid is 14^2 (~12k
+    rows, 480-832 channels): matmul-bound. from_block=None or "conv_2b"
+    quantizes every site."""
     if "int8" in params:  # idempotent: already-quantized tree passes through
         return params
     params = jax.tree_util.tree_map(np.asarray, dict(params))
@@ -222,29 +199,20 @@ def _inception_block(params, x, widths, dtype, defer_gate=False,
     if "gating_b0" not in params:
         return (out, None) if defer_gate else out
     # Gate vectors from the per-branch means (fp32 accumulation, same as
-    # SelfGating), applied as ONE multiply on the concatenated output.
-    # Round-5 (VERDICT r4 #2a): ONE mean over the concatenated output —
-    # the channel mean of concat(parts) IS the concat of per-branch means —
-    # and the four per-branch gate FCs as one block-diagonal matmul, so the
-    # gating costs a single convert+reduce pass over the block output
-    # instead of four slice reduces + four narrow matmuls (the trace's
-    # biggest non-stem bucket). Off-diagonal zeros contribute exactly 0:
-    # bitwise the same math.
-    import os
-
-    if os.environ.get("S3DG_GATEMM", "1") == "0":  # A/B arm: round-4 form
-        gates = jnp.concatenate([
-            _gate(params[f"gating_b{i}"], _spatial_mean(part))
-            for i, part in enumerate(parts)], axis=-1).astype(dtype)
-    else:
-        pooled = _spatial_mean(out)
-        kernel = jax.scipy.linalg.block_diag(*(
-            params[f"gating_b{i}"]["fc"]["kernel"].astype(jnp.float32)
-            for i in range(4)))
-        bias = jnp.concatenate([
-            params[f"gating_b{i}"]["fc"]["bias"].astype(jnp.float32)
-            for i in range(4)])
-        gates = jax.nn.sigmoid(pooled @ kernel + bias).astype(dtype)
+    # SelfGating), applied as ONE multiply on the concatenated output. The
+    # channel mean of concat(parts) IS the concat of per-branch means, and
+    # the four per-branch gate FCs run as one block-diagonal matmul, so the
+    # gating costs one reduce over the block output instead of four slice
+    # reduces and four narrow matmuls. Off-diagonal zeros contribute
+    # exactly 0: the same math.
+    pooled = _spatial_mean(out)
+    kernel = jax.scipy.linalg.block_diag(*(
+        params[f"gating_b{i}"]["fc"]["kernel"].astype(jnp.float32)
+        for i in range(4)))
+    bias = jnp.concatenate([
+        params[f"gating_b{i}"]["fc"]["bias"].astype(jnp.float32)
+        for i in range(4)])
+    gates = jax.nn.sigmoid(pooled @ kernel + bias).astype(dtype)
     if defer_gate:
         # The caller max-pools next: sigmoid gates are positive per-channel
         # scales, and max commutes with positive scaling, so the multiply
@@ -272,103 +240,39 @@ _BLOCK_WIDTHS = {
 }
 
 
-def _stem_kernel_path(params, x: jnp.ndarray, dtype,
-                      transpose: bool = True) -> jnp.ndarray:
-    """space_to_depth + conv1 + BN + ReLU + the first max pool, all inside
-    the Pallas stem kernel (ops/s3dg_stem.py). Returns NDHWC at 1/4 res;
-    transpose=False returns the kernel's native (B, Ts, Hp, 64, Wp)
-    channels-on-sublanes layout (callers can fold the relayout into the
-    next 1x1x1 conv's contraction instead — round-5 copy fix)."""
-    import os
-
-    from fitclip_tpu.ops import s3dg_stem as _stem
-
-    kern, bias = _folded(params["conv1"]["conv1"], params["conv1"]["bn1"], dtype)
-    # rows_per_iter=4 measured best on v5e (3.90 ms vs 4.07 at r2 / 5.14 at
-    # r1, scripts/bench_s3dg_stem3.py); fall back to a divisor of Hs for
-    # non-multiple-of-8 input heights. v3 (persistent two-slot slab: the
-    # time tap written at step t-1 is reused in place, so each step
-    # lane-rolls and fetches only the NEW row) measured 3.99 -> 2.91 ms at
-    # rows_per_iter=4 (scripts/bench_s3dg_stem3.py, v5e); v4 feeds the slab
-    # straight from the selection matmul (`s2d_rows`), dropping the XLA
-    # pad/transpose relayouts. S3DG_STEM_V picks the generation.
-    version = os.environ.get("S3DG_STEM_V", "3")
-    pack, conv, producer = {
-        "2": (_stem.pack_stem_weights_v2, _stem.s3dg_stem_conv_v2,
-              _stem.s2d_transpose),
-        "3": (_stem.pack_stem_weights_v3, _stem.s3dg_stem_conv_v3,
-              _stem.s2d_transpose),
-        "4": (_stem.pack_stem_weights_v4, _stem.s3dg_stem_conv_v4,
-              _stem.s2d_rows),
-    }[version]
-    rpi = next(r for r in (4, 2, 1) if (x.shape[2] // 2) % r == 0)
-    w2, bias_b, sel = pack(kern, bias, dtype, rows_per_iter=rpi)
-    y = conv(producer(x), w2, bias_b, sel, ws=x.shape[3] // 2)
-    if not transpose:
-        return y  # (B, Ts, Hp, 64, Wp)
-    return y.transpose(0, 1, 2, 4, 3)  # (B, Ts, Hp, Wp, 64) NDHWC
-
-
 def s3dg_fast_apply(params, video: jnp.ndarray, dtype=jnp.bfloat16,
                     use_space_to_depth: bool = True,
                     use_last_layer: bool = True,
-                    stem_kernel: bool = None,
                     int8: bool = False,
                     collect: Optional[dict] = None) -> jnp.ndarray:
     """Drop-in for `S3DG(...).apply({"params": params}, video)` at eval.
 
     video: (B, T, H, W, 3) raw pixels; returns (B, 512) embeddings.
-    stem_kernel=None routes the s2d stem through the Pallas conv kernel on
-    TPU (ops/s3dg_stem.py); True forces it (interpret mode off-TPU).
     int8=True runs the matmul-shaped convs W8A8 (params must come from
     quantize_s3dg_fast); pass a dict as ``collect`` to record per-site
     activation abs-maxes for calibration (dynamic-quant forward).
     """
-    if stem_kernel is None:
-        stem_kernel = use_space_to_depth and jax.default_backend() == "tpu"
     q = params.get("int8") if int8 else None
     if int8 and q is None:
         raise ValueError("int8 forward needs quantize_s3dg_fast params")
     x = video.astype(dtype)
     conv = partial(_st_conv, dtype=dtype)
-    import os
-
-    q_2b = q.get("conv_2b") if q is not None else None
-    fold_2b = os.environ.get("S3DG_FOLD2B", "1") != "0"
-    if stem_kernel and use_space_to_depth and q_2b is None and fold_2b:
-        # Keep the stem kernel's native (B, Ts, Hp, 64, Wp) layout and fold
-        # the NDHWC relayout into conv_2b's 1x1x1 contraction: the matmul
-        # contracts the 64-channel axis where it already lives, so the
-        # 51 MB transpose copy (0.54 ms/call in the round-5 trace)
-        # disappears and the dot's output IS NDHWC.
-        y = _stem_kernel_path(params, x, dtype, transpose=False)
-        kern, bias = _folded(params["conv_2b"]["conv1"],
-                             params["conv_2b"]["bn1"], dtype)
-        w = kern.reshape(kern.shape[-2], kern.shape[-1])  # (64, C_out)
-        x = jax.nn.relu(jax.lax.dot_general(
-            y, w, dimension_numbers=(((3,), (0,)), ((), ()))) + bias)
+    if use_space_to_depth:
+        x = space_to_depth(x)
+        x = conv(params["conv1"], x, (2, 4, 4), stride=1, padding=(1, 2, 2))
+        x = x[:, 1:, 1:, 1:, :]
+        x = max_pool_3d_tf_padding(x, (1, 3, 3), (1, 2, 2))
     else:
-        if stem_kernel and use_space_to_depth:
-            x = _stem_kernel_path(params, x, dtype)
-        elif use_space_to_depth:
-            x = space_to_depth(x)
-            x = conv(params["conv1"], x, (2, 4, 4), stride=1, padding=(1, 2, 2))
-            x = x[:, 1:, 1:, 1:, :]
-            x = max_pool_3d_tf_padding(x, (1, 3, 3), (1, 2, 2))
-        else:
-            x = conv(params["conv1"], x, (3, 7, 7), stride=2, padding=(1, 3, 3))
-            x = max_pool_3d_tf_padding(x, (1, 3, 3), (1, 2, 2))
-        if q_2b is not None:
-            x = _int8_conv1x1(q_2b, x, collect, "conv_2b")
-        else:
-            x = conv(params["conv_2b"], x, 1)
+        x = conv(params["conv1"], x, (3, 7, 7), stride=2, padding=(1, 3, 3))
+        x = max_pool_3d_tf_padding(x, (1, 3, 3), (1, 2, 2))
+    q_2b = q.get("conv_2b") if q is not None else None
+    if q_2b is not None:
+        x = _int8_conv1x1(q_2b, x, collect, "conv_2b")
+    else:
+        x = conv(params["conv_2b"], x, 1)
     x = conv(params["conv_2c"], x, 3, padding=1, separable=True)
     # Self-gating deferred past the pool (see _inception_block defer_gate):
     # the gate mean reads the 56^2 activation, the multiply runs at 28^2.
-    # (Splitting the mean out of the temporal conv's epilogue with an
-    # optimization_barrier measured NEGATIVE — 1675 -> 1531 clips/s: the
-    # 1.56 ms fused epilogue already hides the reduce behind the conv; a
-    # separate reduce pays a second full read of the 154 MB activation.)
     gate = _gate(params["gating"], _spatial_mean(x)).astype(dtype)
     x = max_pool_3d_tf_padding(x, (1, 3, 3), (1, 2, 2))
     x = x * gate[:, None, None, None, :]

@@ -1,4 +1,4 @@
-"""SLIP encoder family (facebookresearch/SLIP's CLIP/SLIP variants) in Flax.
+"""SLIP encoder family (facebookresearch/SLIP's CLIP/SLIP variants) in plain JAX.
 
 Reference: the vendored slip.py (aligner/encoder/slip.py:399-544,566-637) and
 its wrapper (slip_video_text_encoder.py). Architecture = timm-style ViT vision
@@ -6,7 +6,8 @@ tower (patch conv with bias, cls token, pos embed including cls, LN eps 1e-6,
 exact GELU, final norm, CLS pooling) + a CLIP-style causal text transformer
 (QuickGELU, LN eps 1e-5) + separate image/text projection matrices. The SSL
 (SimCLR) heads of SLIP checkpoints are dropped: they don't participate in
-encode_image/encode_text.
+encode_image/encode_text. Both towers run the CLIP model's transformer
+(models/clip/model.py) over the same block layout.
 
 Tokenizer: SLIP's SimpleTokenizer is the same byte-BPE as CLIP's — reuse
 ClipTokenizer. Preprocessing: imagenet normalization, bilinear resize, 224
@@ -14,9 +15,8 @@ center crop, eval only (the reference raises on train transforms).
 """
 
 import dataclasses
-from typing import Iterator, Mapping, Optional
+from typing import Any, Iterator, Mapping, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,8 +24,11 @@ import numpy as np
 from fitclip_tpu.data.frame_sampler import UniformFrameSampler
 from fitclip_tpu.models.api import PreprocessSpec, VideoTextEncoder
 from fitclip_tpu.models.clip.encoder import l2_normalize
-from fitclip_tpu.models.clip.model import (LayerNormFp32, PRECISION, TextConfig,
-                                           Transformer)
+from fitclip_tpu.models.clip.model import (PRECISION, BlockSpec, TextConfig,
+                                           _ln_init, dense, encode_text_tower,
+                                           init_blocks, init_text_tower,
+                                           layer_norm, transformer,
+                                           unfold_patches)
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -61,88 +64,71 @@ class SlipConfig:
                                           width=32, layers=2, heads=4))
 
 
-class TimmViT(nn.Module):
-    """timm vision_transformer semantics: returns the normed CLS token."""
-    width: int
-    layers: int
-    heads: int
-    patch_size: int
-    image_size: int
-    dtype: object = jnp.float32
-    fused_attention: bool = False
-    quantized: bool = False
-
-    @nn.compact
-    def __call__(self, images: jnp.ndarray) -> jnp.ndarray:
-        b = images.shape[0]
-        g, p = self.image_size // self.patch_size, self.patch_size
-        x = images.astype(self.dtype)
-        x = x.reshape(b, g, p, g, p, 3).transpose(0, 1, 3, 2, 4, 5).reshape(b, g * g, p * p * 3)
-        x = nn.Dense(self.width, dtype=self.dtype, param_dtype=jnp.float32,
-                     precision=PRECISION, name="patch_embed")(x)
-        cls_token = self.param("cls_token", nn.initializers.zeros, (self.width,), jnp.float32)
-        x = jnp.concatenate([jnp.broadcast_to(cls_token.astype(self.dtype),
-                                              (b, 1, self.width)), x], axis=1)
-        pos_embed = self.param("pos_embed", nn.initializers.normal(0.02),
-                               (g * g + 1, self.width), jnp.float32)
-        x = x + pos_embed.astype(self.dtype)
-        x = Transformer(self.width, self.layers, self.heads, causal=False,
-                        quick_gelu=False, dtype=self.dtype,
-                        fused_attention=self.fused_attention, ln_eps=1e-6,
-                        quantized=self.quantized, name="blocks")(x)
-        x = LayerNormFp32(self.dtype, 1e-6, name="norm")(x)
-        return x[:, 0]
-
-
-class SlipModel(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SlipModel:
+    """SLIP's tower pair over a nested-dict param tree (the layout
+    ``slip_params_from_torch`` writes)."""
     config: SlipConfig
-    dtype: object = jnp.float32
-    fused_attention: bool = False
-    quantized: bool = False
+    dtype: Any = jnp.float32
 
-    def setup(self):
+    def init(self, rng):
         cfg = self.config
-        self.visual = TimmViT(cfg.vision_width, cfg.vision_layers, cfg.vision_heads,
-                              cfg.patch_size, cfg.image_size, self.dtype,
-                              self.fused_attention, self.quantized)
-        self.transformer = Transformer(cfg.text.width, cfg.text.layers,
-                                       cfg.text.heads, causal=True,
-                                       quick_gelu=True, dtype=self.dtype,
-                                       fused_attention=self.fused_attention,
-                                       quantized=self.quantized)
-        self.ln_final = LayerNormFp32(self.dtype, 1e-5)
-        self.token_embedding = self.param("token_embedding",
-                                          nn.initializers.normal(0.02),
-                                          (cfg.text.vocab_size, cfg.text.width),
-                                          jnp.float32)
-        self.positional_embedding = self.param("positional_embedding",
-                                               nn.initializers.normal(0.01),
-                                               (cfg.text.context_length, cfg.text.width),
-                                               jnp.float32)
-        self.image_projection = self.param("image_projection",
-                                           nn.initializers.normal(cfg.vision_width ** -0.5),
-                                           (cfg.vision_width, cfg.embed_dim), jnp.float32)
-        self.text_projection = self.param("text_projection",
-                                          nn.initializers.normal(cfg.text.width ** -0.5),
-                                          (cfg.text.width, cfg.embed_dim), jnp.float32)
+        k_patch, k_pos, k_blocks, k_text, k_img = jax.random.split(rng, 5)
+        patch_in = cfg.patch_size * cfg.patch_size * 3
+        grid = cfg.image_size // cfg.patch_size
+        text = init_text_tower(k_text, cfg.text, cfg.embed_dim)
+        visual = {
+            "patch_embed": {
+                "kernel": jax.nn.initializers.lecun_normal()(
+                    k_patch, (patch_in, cfg.vision_width), jnp.float32),
+                "bias": jnp.zeros((cfg.vision_width,), jnp.float32)},
+            "cls_token": jnp.zeros((cfg.vision_width,), jnp.float32),
+            "pos_embed": 0.02 * jax.random.normal(
+                k_pos, (grid * grid + 1, cfg.vision_width), jnp.float32),
+            "blocks": {"blocks": init_blocks(k_blocks, cfg.vision_layers,
+                                             cfg.vision_width)},
+            "norm": _ln_init(cfg.vision_width),
+        }
+        return {"visual": visual, **text,
+                "image_projection": cfg.vision_width ** -0.5 * jax.random.normal(
+                    k_img, (cfg.vision_width, cfg.embed_dim), jnp.float32)}
 
-    def encode_image(self, images: jnp.ndarray) -> jnp.ndarray:
-        x = self.visual(images)
-        return jnp.matmul(x, self.image_projection.astype(self.dtype),
-                          precision=PRECISION)
+    def _encode_image(self, params, images, calibrate: bool):
+        cfg, dtype = self.config, self.dtype
+        v = params["visual"]
+        b = images.shape[0]
+        x = dense(unfold_patches(images.astype(dtype), cfg.patch_size),
+                  v["patch_embed"], dtype)
+        cls = jnp.broadcast_to(v["cls_token"].astype(dtype), (b, 1, cfg.vision_width))
+        x = jnp.concatenate([cls, x], axis=1) + v["pos_embed"].astype(dtype)
+        spec = BlockSpec(heads=cfg.vision_heads, causal=False, quick_gelu=False,
+                         dtype=dtype, ln_eps=1e-6)
+        x, observed = transformer(x, v["blocks"]["blocks"], spec,
+                                  calibrate=calibrate)
+        x = layer_norm(x, v["norm"]["ln"], dtype, 1e-6)[:, 0]
+        x = jnp.matmul(x, params["image_projection"].astype(dtype),
+                       precision=PRECISION)
+        return x, ({"visual": {"blocks": {"blocks": observed}}}
+                   if calibrate else None)
 
-    def encode_text(self, input_ids: jnp.ndarray) -> jnp.ndarray:
-        x = self.token_embedding[input_ids].astype(self.dtype)
-        x = x + self.positional_embedding[: x.shape[1]].astype(self.dtype)
-        x = self.transformer(x)
-        x = self.ln_final(x)
-        eot = jnp.argmax(input_ids, axis=-1)
-        x = jnp.take_along_axis(x, eot[:, None, None], axis=1)[:, 0]
-        return jnp.matmul(x, self.text_projection.astype(self.dtype),
-                          precision=PRECISION)
+    def _encode_text(self, params, input_ids, calibrate: bool):
+        cfg = self.config.text
+        spec = BlockSpec(heads=cfg.heads, causal=True, quick_gelu=True,
+                         dtype=self.dtype)
+        return encode_text_tower(params, input_ids, cfg, spec,
+                                 calibrate=calibrate)
 
-    def __call__(self, images, input_ids):
-        return self.encode_image(images), self.encode_text(input_ids)
+    def encode_image(self, params, images: jnp.ndarray) -> jnp.ndarray:
+        return self._encode_image(params, images, calibrate=False)[0]
+
+    def encode_text(self, params, input_ids: jnp.ndarray) -> jnp.ndarray:
+        return self._encode_text(params, input_ids, calibrate=False)[0]
+
+    def image_act_amax(self, params, images: jnp.ndarray):
+        return self._encode_image(params, images, calibrate=True)[1]
+
+    def text_act_amax(self, params, input_ids: jnp.ndarray):
+        return self._encode_text(params, input_ids, calibrate=True)[1]
 
 
 def _stack(arrays):
@@ -173,7 +159,7 @@ def _timm_blocks_to_flax(sd: Mapping[str, np.ndarray], prefix: str, layers: int)
 
 def slip_params_from_torch(state_dict: Mapping[str, np.ndarray],
                            config: SlipConfig) -> dict:
-    """SLIP checkpoint state dict (module. prefix already stripped) -> flax."""
+    """SLIP checkpoint state dict (module. prefix already stripped) -> params."""
     from fitclip_tpu.convert.torch_state_dict import _openai_tower_blocks, _patch_kernel
 
     sd = {k: np.asarray(v) for k, v in state_dict.items()}
@@ -215,24 +201,13 @@ class SlipVideoTextEncoder(VideoTextEncoder):
     trainable = False
 
     def __init__(self, config: Optional[SlipConfig] = None, num_frames: int = 4,
-                 dtype=jnp.float32, fused_attention: bool = False,
-                 quantized: bool = False, fused_block: Optional[bool] = None,
+                 dtype=jnp.float32, quantized: bool = False,
                  tokenizer=None, bpe_path: Optional[str] = None) -> None:
         self.config = config or SlipConfig.vit_b16()
         # quantized = int8 W8A8 block denses (ops/quant.py; params from
-        # quantize_clip_params — it walks the SLIP tree too). As on the CLIP
-        # encoder, quantized + fused attention defaults to the whole-layer
-        # Pallas megakernel (models/slip_fast.py); fused_block=True on a
-        # float encoder opts into the bf16 layer megakernel.
+        # quantize_clip_params — it walks the SLIP tree too).
         self.quantized = quantized
-        self.fused_block = (bool(quantized) and fused_attention
-                            if fused_block is None else fused_block)
-        # Exposed so the CLI runners shard_map any Pallas-kernel eval path
-        # under multi-chip meshes (GSPMD can't partition pallas_call).
-        self.fused_attention = fused_attention
-        self.model = SlipModel(self.config, dtype=dtype,
-                               fused_attention=fused_attention,
-                               quantized=quantized)
+        self.model = SlipModel(self.config, dtype=dtype)
         self.num_frames = num_frames
         self._tokenizer = tokenizer
         self._bpe_path = bpe_path
@@ -248,18 +223,14 @@ class SlipVideoTextEncoder(VideoTextEncoder):
         )
 
     def init_params(self, rng):
-        cfg = self.config
-        dummy_image = jnp.zeros((1, cfg.image_size, cfg.image_size, 3))
-        dummy_ids = jnp.zeros((1, cfg.text.context_length), jnp.int32)
+        params = self.model.init(rng)
         if self.quantized:
-            # Init a float twin and quantize so random-init tests carry real
+            # Quantize the float init so random-init runs carry real
             # (nonzero) weights in the int8 structure.
             from fitclip_tpu.ops.quant import quantize_clip_params
 
-            float_model = SlipModel(self.config, dtype=self.model.dtype)
-            params = float_model.init(rng, dummy_image, dummy_ids)["params"]
             return quantize_clip_params(params)
-        return self.model.init(rng, dummy_image, dummy_ids)["params"]
+        return params
 
     def _prepare_frames(self, video: jnp.ndarray) -> jnp.ndarray:
         if video.dtype == jnp.uint8:
@@ -272,48 +243,26 @@ class SlipVideoTextEncoder(VideoTextEncoder):
 
     def encode_video(self, params, video: jnp.ndarray) -> jnp.ndarray:
         b, t = video.shape[0], video.shape[1]
-        frames = self._prepare_frames(video)
-        if self.fused_block:
-            from fitclip_tpu.models.slip_fast import encode_frames_fast
-
-            emb = encode_frames_fast(params, frames, self.config,
-                                     dtype=self.model.dtype)
-        else:
-            emb = self.model.apply({"params": params}, frames,
-                                   method=SlipModel.encode_image)
-        emb = l2_normalize(emb)
+        emb = l2_normalize(self.model.encode_image(params,
+                                                   self._prepare_frames(video)))
         return emb.reshape(b, t, -1).mean(axis=1)
 
     def encode_text(self, params, text: jnp.ndarray) -> jnp.ndarray:
-        if self.fused_block:
-            from fitclip_tpu.models.slip_fast import encode_text_fast
-
-            return l2_normalize(encode_text_fast(params, text, self.config,
-                                                 dtype=self.model.dtype))
-        emb = self.model.apply({"params": params}, text, method=SlipModel.encode_text)
-        return l2_normalize(emb)
+        return l2_normalize(self.model.encode_text(params, text))
 
     def collect_act_amax(self, params, video: jnp.ndarray,
                          text: Optional[jnp.ndarray] = None):
         """One calibration observation: both towers in DYNAMIC-quant mode,
-        returning the sown activation abs-max tree (same protocol as
+        returning the activation abs-max tree (same protocol as
         ClipVideoTextEncoder, consumed by the CLI runners' multi-batch
         calibration)."""
-        assert self.quantized, "calibration requires a quantized encoder"
-        dynamic_model = SlipModel(self.config, dtype=self.model.dtype,
-                                  fused_attention=self.model.fused_attention,
-                                  quantized="dynamic")
-        frames = self._prepare_frames(video)
-        _, state = dynamic_model.apply({"params": params}, frames,
-                                       method=SlipModel.encode_image,
-                                       mutable=["intermediates"])
-        intermediates = dict(state["intermediates"])
+        if not self.quantized:
+            raise ValueError("calibration requires a quantized encoder")
+        observed = dict(self.model.image_act_amax(params,
+                                                  self._prepare_frames(video)))
         if text is not None:
-            _, text_state = dynamic_model.apply({"params": params}, text,
-                                                method=SlipModel.encode_text,
-                                                mutable=["intermediates"])
-            intermediates.update(dict(text_state["intermediates"]))
-        return intermediates
+            observed.update(self.model.text_act_amax(params, text))
+        return observed
 
     def calibrate(self, params, video: jnp.ndarray,
                   text: Optional[jnp.ndarray] = None, margin: float = 1.0):
@@ -346,20 +295,14 @@ def _raise_train_sampler(*args, **kwargs):
 def load_slip_encoder(checkpoint_path: Optional[str] = None,
                       model: str = "SLIP_VITB16", num_frames: int = 4,
                       dtype: str = "float32",
-                      fused_attention: Optional[bool] = None,
-                      fused_block: Optional[bool] = None,
                       bpe_path: Optional[str] = None,
                       seed: int = 0):
     """config/encoder/slip_* factory. The released checkpoints carry their
     factory name in args.model (slip_video_text_encoder.py:17-22).
 
     encoder.dtype=int8 selects the W8A8 inference path (bf16 activations,
-    int8 block denses, whole-layer Pallas megakernels — models/slip_fast.py),
-    same semantics as on the CLIP loader."""
+    int8 block denses), same semantics as on the CLIP loader."""
     from fitclip_tpu.models.clip.load import LoadedEncoder, _DTYPES
-
-    if fused_attention is None:
-        fused_attention = jax.default_backend() == "tpu"
 
     state_dict = None
     if checkpoint_path:
@@ -379,10 +322,7 @@ def load_slip_encoder(checkpoint_path: Optional[str] = None,
                          f"{sorted(_DTYPES)} or 'int8'")
     compute_dtype = _DTYPES["bfloat16" if quantized else str(dtype)]
     encoder = SlipVideoTextEncoder(config, num_frames=num_frames,
-                                   dtype=compute_dtype,
-                                   fused_attention=fused_attention,
-                                   quantized=quantized,
-                                   fused_block=fused_block,
+                                   dtype=compute_dtype, quantized=quantized,
                                    bpe_path=bpe_path)
     if state_dict is not None:
         params = slip_params_from_torch(state_dict, config)

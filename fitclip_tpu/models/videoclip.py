@@ -27,6 +27,7 @@ import numpy as np
 from fitclip_tpu.data.frame_sampler import ConsecutiveFrameSampler
 from fitclip_tpu.models.api import PreprocessSpec, VideoTextEncoder
 from fitclip_tpu.models.s3dg import S3DG
+from fitclip_tpu.ops.attention import attention
 
 PRECISION = jax.lax.Precision.HIGHEST
 
@@ -64,10 +65,9 @@ class _LayerNorm(nn.Module):
 
 class BertLayer(nn.Module):
     """dtype is the matmul compute dtype. fp32 keeps the HF-oracle parity
-    path (precision=HIGHEST); bf16 runs the denses on the MXU's native rate
-    — fp32 HIGHEST matmuls are multi-pass emulated on v5e (the same trap
-    measured on RN50 4.3x and FiT 2.6x, BASELINE.md). Attention logits and
-    softmax stay fp32; LayerNorm always reduces in fp32 and casts back."""
+    path (precision=HIGHEST); bf16 is the throughput configuration.
+    Attention logits and softmax stay fp32; LayerNorm always reduces in fp32
+    and casts back."""
     config: BertConfig
     dtype: jnp.dtype = jnp.float32
 
@@ -86,13 +86,7 @@ class BertLayer(nn.Module):
         q = heads(dense(cfg.hidden_size, "attention_query")(x))
         k = heads(dense(cfg.hidden_size, "attention_key")(x))
         v = heads(dense(cfg.hidden_size, "attention_value")(x))
-        logits = jnp.einsum("bqhd,bkhd->bhqk", q, k, precision=PRECISION,
-                            preferred_element_type=jnp.float32) / (head_dim ** 0.5)
-        logits = jnp.where(attention_mask[:, None, None, :] > 0, logits,
-                           jnp.finfo(jnp.float32).min)
-        weights = jax.nn.softmax(logits, axis=-1).astype(v.dtype)
-        attn = jnp.einsum("bhqk,bkhd->bqhd", weights, v, precision=PRECISION,
-                          preferred_element_type=self.dtype).reshape(*x.shape)
+        attn = attention(q, k, v, key_mask=attention_mask > 0).reshape(*x.shape)
         attn = dense(cfg.hidden_size, "attention_output")(attn)
         x = _LayerNorm(name="attention_layernorm")(x + attn)
         h = dense(cfg.intermediate_size, "intermediate")(x)
@@ -263,8 +257,7 @@ class VideoClipVideoTextEncoder(VideoTextEncoder):
                  dtype=jnp.float32, fast: Optional[bool] = None) -> None:
         self.config = config or BertConfig()
         # dtype runs the S3DG feature extractor AND the MMBert fusion matmuls
-        # in that dtype (round-4: the fusion was pinned fp32 HIGHEST — v5e
-        # multi-pass-emulates those matmuls; bf16-vs-fp32 cosine is gated in
+        # in that dtype (bf16-vs-fp32 cosine is gated in
         # tests/test_videoclip.py). LayerNorms/softmax/pooling stay fp32.
         # "int8" = W8A8 S3DG matmul-shaped convs (models/s3dg_fast.py) with
         # the fusion in bf16; needs calibrated scales (cli/runners.py).
@@ -295,12 +288,6 @@ class VideoClipVideoTextEncoder(VideoTextEncoder):
             pad_to_min_frames=num_frames,
             max_tokens=max_tokens,
         )
-
-    @property
-    def uses_pallas(self) -> bool:
-        """Fast S3DG routes its stem through a Pallas kernel on TPU
-        (ops/s3dg_stem.py) — multi-chip eval must shard_map it."""
-        return self.fast and jax.default_backend() == "tpu"
 
     def init_params(self, rng):
         rng_s, rng_m = jax.random.split(rng)
@@ -344,14 +331,10 @@ class VideoClipVideoTextEncoder(VideoTextEncoder):
                                 method=VideoClipModel.forward_video)
 
     def quantize_params(self, params) -> dict:
-        import os
-
         from fitclip_tpu.models.s3dg_fast import quantize_s3dg_fast
 
         # See MilNceVideoTextEncoder.quantize_params / quantize_s3dg_fast.
-        return {"s3dg": quantize_s3dg_fast(
-                    params["s3dg"],
-                    from_block=os.environ.get("S3DG_INT8_FROM", "mixed_4b")),
+        return {"s3dg": quantize_s3dg_fast(params["s3dg"], from_block="mixed_4b"),
                 "model": params["model"]}
 
     def collect_act_amax(self, params, video: jnp.ndarray, text=None):

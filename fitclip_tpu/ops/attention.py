@@ -1,569 +1,77 @@
-"""Fused multi-head attention as a Pallas TPU kernel.
+"""Scaled dot-product attention: one function and one route table.
 
-For CLIP-scale sequences (197 vision tokens / 77 text tokens) the whole
-per-(batch, head) attention fits in VMEM, so instead of a streaming
-flash-attention we fuse QK^T -> softmax -> AV into one kernel. The design is
-driven by two v5e measurements at ViT-B/16 shapes (512 frames, L=197, D=64):
+Every head with plain softmax attention (CLIP, SLIP, DistilBERT, MMBert)
+calls ``attention``. The route comes from ``ROUTES`` by backend unless the
+caller names one; a backend or route outside the table raises. There is no
+fallback: a route that cannot run fails where it is called.
 
-1. **Transposed (.., D, L) layout.** With the natural (rows, L, D) layout the
-   64-wide head dim sits on the 128-lane axis, wasting half the lanes; the
-   batched QK^T ran at 6-19 TFLOP/s. Putting the sequence on lanes
-   (197 -> 256 pad) and D on sublanes (an exact bf16 tile) and contracting
-   over sublanes reaches ~46 TFLOP/s — 4.4x faster per layer.
-2. **Packed heads, in-kernel layout conversion.** Feeding the kernel the
-   projection's natural (B, L, H*D) output and doing the head-split +
-   transpose on VMEM data saves the XLA-side HBM round-trips for relayout
-   (~1ms+/layer at ViT-B/16 scale).
+- ``xla``: ``jax.nn.dot_product_attention(implementation="xla")`` — einsum,
+  fp32 logits and softmax, einsum. fp32 inputs run their two matmuls at
+  HIGHEST precision, so the fp32 configuration stays true fp32 (no TF32).
+- ``cudnn``: cuDNN's fused flash attention, for 16-bit inputs only. Its
+  backward with the implicit bias the JAX wrapper passes takes only even
+  sequence lengths, so odd lengths (CLIP's 197 and 77) are padded by one
+  masked key and query row, and the padded row is sliced off again.
 
-The (L, L) logits never leave VMEM (the XLA einsum path materializes ~1 GB of
-fp32 logits in HBM per ViT-B layer at 512 frames). Softmax is manual: max and
-sum reductions in fp32 on lanes, scale folded into q.
+fp32 inputs (the parity configuration) take ``xla`` on every backend.
 
-Backward pass: custom_vjp with a single Pallas kernel (`_packed_bwd_kernel`)
-that recomputes the softmax weights in the forward's layouts and runs all
-four grad contractions in VMEM — bf16 operands, fp32 accumulation, zero
-transposes beyond the forward's K^T, and the (L, S) logits/weights/dW/dlogits
-never touch HBM. Only one forward of recompute FLOPs and no residual stash.
-When the per-row backward working set exceeds ~90 MB (`_bwd_vmem_bytes`, e.g.
-ViT-L@336's L=577) the kernel cannot fit scoped VMEM even at block=1, and the
-VJP falls back to `_einsum_attention_packed`'s plain-einsum gradient.
+Frozen-in-Time's divided space/time attention with its global CLS key is not
+plain attention and keeps its einsum path (frozen_in_time/video_transformer).
 """
 
-import functools
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-
-def _packed_kernel(qkv_ref, o_ref, *, heads: int, scale: float, causal: bool):
-    """One grid cell = a block of batch rows; the input is the QKV
-    projection's UNSPLIT output (BB, L, 3*H*D) — one kernel operand instead
-    of three saves the XLA-side slice copies feeding the call.
-
-    Layouts (measured fastest of the mixed-layout variants on v5e): only K is
-    transposed to (.., D, L); Q and V stay in the natural (.., L, D) layout
-    and the output needs no back-transpose. QK^T contracts Q's lanes against
-    K^T's sublanes, AV contracts the softmax lanes against V's sublanes —
-    both MXU-friendly, and 2/3 of the in-VMEM transpose traffic of the
-    all-transposed variant disappears (~0.7 ms/layer at ViT-B/16 shapes)."""
-    block_b, seq, width = o_ref.shape
-    head_dim = width // heads
-    qkv = qkv_ref[...]
-
-    def heads_along_batch(offset, transpose):
-        parts = [qkv[:, :, offset + h * head_dim:offset + (h + 1) * head_dim]
-                 for h in range(heads)]
-        if transpose:
-            parts = [part.swapaxes(1, 2) for part in parts]
-        return jnp.concatenate(parts, axis=0)
-
-    q = heads_along_batch(0, False) * jnp.asarray(scale, qkv.dtype)  # (HB, L, D)
-    k_t = heads_along_batch(width, True)                             # (HB, D, L)
-    v = heads_along_batch(2 * width, False)                          # (HB, S, D)
-    logits = jax.lax.dot_general(
-        q, k_t, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)  # (HB, L, L), contract over D
-    if causal:
-        row = jax.lax.broadcasted_iota(jnp.int32, logits.shape, 1)
-        col = jax.lax.broadcasted_iota(jnp.int32, logits.shape, 2)
-        logits = jnp.where(col <= row, logits, jnp.finfo(jnp.float32).min)
-    peak = jnp.max(logits, axis=-1, keepdims=True)
-    exps = jnp.exp(logits - peak)
-    denom = jnp.sum(exps, axis=-1, keepdims=True)
-    weights = (exps / denom).astype(v.dtype)
-    out = jax.lax.dot_general(
-        weights, v, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)  # (HB, L, D)
-    o_ref[...] = jnp.concatenate(
-        [out[h * block_b:(h + 1) * block_b] for h in range(heads)],
-        axis=2).astype(o_ref.dtype)
-
-
-def _packed_gkv_kernel(qkv_ref, gkv_ref, o_ref, *, heads: int, scale: float):
-    """_packed_kernel plus one GLOBAL key/value row per batch row: gkv_ref is
-    a (BB, 3*H*D) per-row qkv vector (its q third is unused) whose k/v join
-    the attended set as key/value index 0 — softmax runs over [global | seq].
-
-    This serves divided attention with a global CLS token (Frozen-in-Time's
-    VarAttention): the caller passes per-group sequences plus the group's
-    CLS qkv, instead of materializing a (groups, 1+L, 3W) concat in HBM and
-    slicing the CLS row back off the output (~15 ms/call at FiT eval shapes,
-    profiled). The concat onto K^T/V happens on VMEM tiles in-kernel."""
-    block_b, seq, width = o_ref.shape
-    head_dim = width // heads
-    qkv = qkv_ref[...]
-    gkv = gkv_ref[...]
-
-    def heads_along_batch(offset, transpose):
-        parts = [qkv[:, :, offset + h * head_dim:offset + (h + 1) * head_dim]
-                 for h in range(heads)]
-        if transpose:
-            parts = [part.swapaxes(1, 2) for part in parts]
-        return jnp.concatenate(parts, axis=0)
-
-    def g_heads(offset):
-        # (HB, 1, D): gkv arrives (BB, 1, 3W) — already carrying the unit
-        # sequence axis, because Mosaic can't rank-change bf16 vectors
-        # in-kernel (dim-inserting shape casts are 32-bit only) and a 2D
-        # operand block would violate the (8, 128) trailing-dim rule.
-        return jnp.concatenate(
-            [gkv[:, :, offset + h * head_dim:offset + (h + 1) * head_dim]
-             for h in range(heads)], axis=0)
-
-    q = heads_along_batch(0, False) * jnp.asarray(scale, qkv.dtype)
-    k = heads_along_batch(width, False)                               # (HB, L, D)
-    v = heads_along_batch(2 * width, False)                           # (HB, L, D)
-    k_t = jnp.concatenate([g_heads(width), k], axis=1).swapaxes(1, 2)  # (HB, D, 1+L)
-    v = jnp.concatenate([g_heads(2 * width), v], axis=1)              # (HB, 1+L, D)
-    logits = jax.lax.dot_general(
-        q, k_t, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)  # (HB, L, 1+L)
-    peak = jnp.max(logits, axis=-1, keepdims=True)
-    exps = jnp.exp(logits - peak)
-    denom = jnp.sum(exps, axis=-1, keepdims=True)
-    weights = (exps / denom).astype(v.dtype)
-    out = jax.lax.dot_general(
-        weights, v, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)  # (HB, L, D)
-    o_ref[...] = jnp.concatenate(
-        [out[h * block_b:(h + 1) * block_b] for h in range(heads)],
-        axis=2).astype(o_ref.dtype)
-
-
-def fused_attention_qkv_gkv(qkv, gkv, heads: int, scale: float,
-                            interpret: Optional[bool] = None,
-                            block: Optional[int] = None):
-    """Attention over (B, L, 3*H*D) sequences where each batch row also
-    attends to ONE global key/value taken from `gkv` (B, 3*H*D). Forward
-    only (inference paths). `block` overrides the VMEM-budget block-rows
-    heuristic (must divide batch)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    batch, seq, triple_width = qkv.shape
-    width = triple_width // 3
-    if block is None:
-        block = _block_rows(batch, seq, heads, width // heads)
-    kernel = functools.partial(_packed_gkv_kernel, heads=heads, scale=scale)
-    memory_space = pltpu.ANY if interpret else pltpu.VMEM
-    gkv = gkv.reshape(batch, 1, triple_width)
-    return pl.pallas_call(
-        kernel,
-        grid=(batch // block,),
-        in_specs=[pl.BlockSpec((block, seq, triple_width), lambda i: (i, 0, 0),
-                               memory_space=memory_space),
-                  pl.BlockSpec((block, 1, triple_width), lambda i: (i, 0, 0),
-                               memory_space=memory_space)],
-        out_specs=pl.BlockSpec((block, seq, width), lambda i: (i, 0, 0),
-                               memory_space=memory_space),
-        out_shape=jax.ShapeDtypeStruct((batch, seq, width), qkv.dtype),
-        interpret=interpret,
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 2 ** 20),
-    )(qkv, gkv)
-
-
-def _time_attention_kernel(qkv_ref, gkv_ref, o_ref, *, heads: int,
-                           frames: int, scale: float):
-    """Divided TIME attention in the sequence's NATURAL layout: for each
-    spatial location p, query frame f attends over [global | frames g] at
-    the same p. With tiny F (4 for FiT), the (f, g) logits are cheap VPU
-    lane-reductions over row slices — no time-major transpose, no MXU
-    matmuls on 4-deep contractions, everything VMEM-resident per clip:
-
-        logit[p, f, g] = sum_d q[f*P+p, d] * k[g*P+p, d]
-
-    computed as an elementwise product of two (BB, P, D) row slices reduced
-    over lanes. The F*F+F logits per head stay (BB, P, 1) fp32 vectors; the
-    softmax is an unrolled max/exp/sum chain over F+1 values; AV is F*(F+1)
-    broadcast-FMAs. Replaces: time-major relayout (~8 ms/call at FiT eval
-    shapes) + the generic kernel on (B*P, F, 3W) groups (~12 ms)."""
-    block_b, n, triple_w = qkv_ref.shape
-    width = triple_w // 3
-    head_dim = width // heads
-    patches = n // frames
-    qkv = qkv_ref[...]
-    gkv = gkv_ref[...]  # (BB, 1, 3W)
-
-    frame_outs = [[] for _ in range(frames)]  # [f][head] -> (BB, P, D)
-    for h in range(heads):
-        off_q = h * head_dim
-        off_k = width + h * head_dim
-        off_v = 2 * width + h * head_dim
-
-        def rows(off, f):
-            return qkv[:, f * patches:(f + 1) * patches,
-                       off:off + head_dim]
-
-        g_k = gkv[:, :, off_k:off_k + head_dim]  # (BB, 1, D)
-        g_v = gkv[:, :, off_v:off_v + head_dim]
-        ks = [rows(off_k, g) for g in range(frames)]
-        vs = [rows(off_v, g) for g in range(frames)]
-        for f in range(frames):
-            # f32 promotion happens inside each product (no explicit f32
-            # copies of the bf16 slices — they balloon VMEM liveness under
-            # the fully unrolled head/frame loops).
-            q_f = rows(off_q, f).astype(jnp.float32) * scale
-            logits = [jnp.sum(q_f * g_k, axis=-1, keepdims=True)]
-            logits += [jnp.sum(q_f * ks[g], axis=-1, keepdims=True)
-                       for g in range(frames)]
-            peak = logits[0]
-            for l in logits[1:]:
-                peak = jnp.maximum(peak, l)
-            exps = [jnp.exp(l - peak) for l in logits]
-            denom = exps[0]
-            for e in exps[1:]:
-                denom = denom + e
-            inv = 1.0 / denom
-            acc = (exps[0] * inv) * g_v
-            for g in range(frames):
-                acc = acc + (exps[g + 1] * inv) * vs[g]
-            frame_outs[f].append(acc.astype(o_ref.dtype))
-
-    o_ref[...] = jnp.concatenate(
-        [jnp.concatenate(parts, axis=2) for parts in frame_outs], axis=1)
-
-
-def fused_time_attention(qkv, gkv, heads: int, frames: int, scale: float,
-                         interpret: Optional[bool] = None,
-                         block: Optional[int] = None):
-    """Divided time attention over (B, F*P, 3*H*D) sequences in natural
-    layout, each location also attending to ONE global key/value from
-    `gkv` (B, 3*H*D). Forward only (inference paths)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    batch, n, triple_width = qkv.shape
-    width = triple_width // 3
-    if block is None:
-        # Double-buffered qkv blocks dominate VMEM (2 * block * N * 3W);
-        # block=2 measured safely inside the 100MB scoped budget at FiT
-        # eval shapes (block=8 OOMed at 228MB under unrolled-loop liveness).
-        block = 2 if batch % 2 == 0 else 1
-    kernel = functools.partial(_time_attention_kernel, heads=heads,
-                               frames=frames, scale=scale)
-    memory_space = pltpu.ANY if interpret else pltpu.VMEM
-    gkv = gkv.reshape(batch, 1, triple_width)
-    return pl.pallas_call(
-        kernel,
-        grid=(batch // block,),
-        in_specs=[pl.BlockSpec((block, n, triple_width), lambda i: (i, 0, 0),
-                               memory_space=memory_space),
-                  pl.BlockSpec((block, 1, triple_width), lambda i: (i, 0, 0),
-                               memory_space=memory_space)],
-        out_specs=pl.BlockSpec((block, n, width), lambda i: (i, 0, 0),
-                               memory_space=memory_space),
-        out_shape=jax.ShapeDtypeStruct((batch, n, width), qkv.dtype),
-        interpret=interpret,
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 2 ** 20),
-    )(qkv, gkv)
-
-
-def _block_rows(batch: int, seq: int, heads: int, head_dim: int,
-                max_vmem_bytes: int = 44 * 2 ** 20) -> int:
-    """Largest divisor of `batch` fitting the VMEM budget. Per-batch-row cost
-    (lane-padded): per-head fp32 logits + bf16 weights (H * L * L' * 6), the
-    transposed q/k/v/o copies (4 * H * D * L' * 2) and the double-buffered
-    packed IO blocks (4 * L * 3HD * 2). The budget pairs with the 100MB
-    scoped-VMEM CompilerParams below; 44MB picks block=4 at ViT-B/16 shapes
-    (measured +13% over block=1 on the standalone core) while ViT-L@336
-    (54.8MB/row) still degrades gracefully to block=1."""
-    padded_seq = -(-seq // 128) * 128
-    per_row = (heads * seq * padded_seq * 6
-               + 4 * heads * head_dim * padded_seq * 2
-               + 4 * seq * 3 * heads * head_dim * 2)
-    limit = max(1, max_vmem_bytes // per_row)
-    best = 1
-    for candidate in range(1, min(limit, batch) + 1):
-        if batch % candidate == 0:
-            best = candidate
-    return best
-
-
-def _einsum_attention_packed(q, k, v, heads: int, scale: float, causal: bool):
-    b, seq, width = q.shape
-    head_dim = width // heads
-
-    def split(t):
-        return t.reshape(b, seq, heads, head_dim)
-
-    q, k, v = split(q), split(k), split(v)
-    logits = jnp.einsum("blhe,bshe->bhls", q, k,
-                        preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.HIGHEST) * scale
-    if causal:
-        mask = jnp.tril(jnp.ones((seq, seq), dtype=bool))
-        logits = jnp.where(mask, logits, jnp.finfo(jnp.float32).min)
-    weights = jax.nn.softmax(logits, axis=-1).astype(v.dtype)
-    out = jnp.einsum("bhls,bshe->blhe", weights, v,
-                     precision=jax.lax.Precision.HIGHEST)
-    return out.reshape(b, seq, width)
-
-
-def _forward_packed(qkv, heads: int, scale: float, causal: bool,
-                    interpret: bool):
-    batch, seq, triple_width = qkv.shape
-    width = triple_width // 3
-    block = _block_rows(batch, seq, heads, width // heads)
-    kernel = functools.partial(_packed_kernel, heads=heads, scale=scale,
-                               causal=causal)
-    memory_space = pltpu.ANY if interpret else pltpu.VMEM
-    return pl.pallas_call(
-        kernel,
-        grid=(batch // block,),
-        in_specs=[pl.BlockSpec((block, seq, triple_width), lambda i: (i, 0, 0),
-                               memory_space=memory_space)],
-        out_specs=pl.BlockSpec((block, seq, width), lambda i: (i, 0, 0),
-                               memory_space=memory_space),
-        out_shape=jax.ShapeDtypeStruct((batch, seq, width), qkv.dtype),
-        interpret=interpret,
-        # The packed all-heads logits exceed the default 16MB scoped budget
-        # at ViT-L/14@336 sequence length (577 -> 23.6MB fp32 per block row).
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 2 ** 20),
-    )(qkv)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(1, 2, 3, 4))
-def fused_attention_qkv(qkv, heads: int, scale: float, causal: bool = False,
-                        interpret: Optional[bool] = None):
-    """Attention over the UNSPLIT QKV projection output (B, L, 3*H*D) — the
-    projection's natural layout, no XLA-side split or head transpose.
-    `interpret` defaults to True off-TPU so tests run on the interpreter."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    return _forward_packed(qkv, heads, scale, causal, interpret)
-
-
-def fused_attention_packed(q, k, v, heads: int, scale: float,
-                           causal: bool = False,
-                           interpret: Optional[bool] = None):
-    """Attention over packed (B, L, H*D) q/k/v (concatenated to one QKV
-    operand for the kernel)."""
-    return fused_attention_qkv(jnp.concatenate([q, k, v], axis=-1), heads,
-                               scale, causal, interpret)
-
-
-def _packed_bwd_kernel(qkv_ref, g_ref, dqkv_ref, *, heads: int, scale: float,
-                       causal: bool):
-    """Attention backward in ONE kernel: recompute the softmax weights (same
-    layouts as the forward), then the four grad matmuls — the (L, S) logits,
-    weights, dW and dlogits never leave VMEM. The einsum backward this
-    replaces materialized ~119 MB of fp32 logits in HBM per ViT-B/16 train
-    step (b=16, 64 frames).
-
-    Contraction layout notes (zero transposes beyond the forward's K^T):
-      dV[s,d] = sum_l W[l,s]  g[l,d]   — contract axis 1 with axis 1
-      dW[l,s] = sum_d g[l,d]  v[s,d]   — contract lanes with lanes
-      dq[l,d] = sum_s dL[l,s] k[s,d]   — contract axis 2 with axis 1
-      dk[s,d] = sum_l dL[l,s] q[l,d]   — contract axis 1 with axis 1
-    with dL = W * (dW - rowsum(dW*W)) the softmax backward in fp32."""
-    block_b, seq, width = g_ref.shape
-    head_dim = width // heads
-    qkv = qkv_ref[...]
-
-    def heads_along_batch(tensor, offset, transpose=False):
-        parts = [tensor[:, :, offset + h * head_dim:offset + (h + 1) * head_dim]
-                 for h in range(heads)]
-        if transpose:
-            parts = [part.swapaxes(1, 2) for part in parts]
-        return jnp.concatenate(parts, axis=0)
-
-    q = heads_along_batch(qkv, 0)                           # (HB, L, D) UNscaled
-    k_t = heads_along_batch(qkv, width, True)               # (HB, D, L)
-    k = heads_along_batch(qkv, width)                       # (HB, S, D)
-    v = heads_along_batch(qkv, 2 * width)                   # (HB, S, D)
-    g = heads_along_batch(g_ref[...], 0)                    # (HB, L, D)
-
-    q_s = q * jnp.asarray(scale, q.dtype)
-    logits = jax.lax.dot_general(
-        q_s, k_t, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)                 # (HB, L, S)
-    if causal:
-        row = jax.lax.broadcasted_iota(jnp.int32, logits.shape, 1)
-        col = jax.lax.broadcasted_iota(jnp.int32, logits.shape, 2)
-        logits = jnp.where(col <= row, logits, jnp.finfo(jnp.float32).min)
-    peak = jnp.max(logits, axis=-1, keepdims=True)
-    exps = jnp.exp(logits - peak)
-    denom = jnp.sum(exps, axis=-1, keepdims=True)
-    weights32 = exps / denom                                # fp32 (HB, L, S)
-    weights = weights32.astype(v.dtype)
-
-    d_v = jax.lax.dot_general(
-        weights, g, dimension_numbers=(((1,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)                  # (HB, S, D)
-    d_weights = jax.lax.dot_general(
-        g, v, dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)                  # (HB, L, S)
-    inner = jnp.sum(d_weights * weights32, axis=-1, keepdims=True)
-    d_logits = (weights32 * (d_weights - inner)).astype(q.dtype)
-    if causal:
-        d_logits = jnp.where(col <= row, d_logits, jnp.zeros_like(d_logits))
-    d_q = jax.lax.dot_general(
-        d_logits, k, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32) * scale          # (HB, L, D)
-    d_k = jax.lax.dot_general(
-        d_logits, q_s, dimension_numbers=(((1,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)                  # (HB, S, D)
-
-    def concat_heads(t):
-        return jnp.concatenate(
-            [t[h * block_b:(h + 1) * block_b] for h in range(heads)], axis=2)
-
-    dqkv_ref[...] = jnp.concatenate(
-        [concat_heads(d_q), concat_heads(d_k), concat_heads(d_v)],
-        axis=2).astype(dqkv_ref.dtype)
-
-
-def _backward_packed(qkv, grad_out, heads: int, scale: float, causal: bool,
-                     interpret: bool):
-    batch, seq, triple_width = qkv.shape
-    width = triple_width // 3
-    # ~2.5x the forward's per-row VMEM (logits + weights + dW + dlogits);
-    # shrink the budget accordingly so block_rows stays safe.
-    block = _block_rows(batch, seq, heads, width // heads,
-                        max_vmem_bytes=18 * 2 ** 20)
-    kernel = functools.partial(_packed_bwd_kernel, heads=heads, scale=scale,
-                               causal=causal)
-    memory_space = pltpu.ANY if interpret else pltpu.VMEM
-    return pl.pallas_call(
-        kernel,
-        grid=(batch // block,),
-        in_specs=[pl.BlockSpec((block, seq, triple_width), lambda i: (i, 0, 0),
-                               memory_space=memory_space),
-                  pl.BlockSpec((block, seq, width), lambda i: (i, 0, 0),
-                               memory_space=memory_space)],
-        out_specs=pl.BlockSpec((block, seq, triple_width), lambda i: (i, 0, 0),
-                               memory_space=memory_space),
-        out_shape=jax.ShapeDtypeStruct((batch, seq, triple_width), qkv.dtype),
-        interpret=interpret,
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 2 ** 20),
-    )(qkv, grad_out)
-
-
-def _fwd(qkv, heads, scale, causal, interpret):
-    return fused_attention_qkv(qkv, heads, scale, causal, interpret), (qkv,)
-
-
-def _bwd_vmem_bytes(seq: int, heads: int, head_dim: int) -> int:
-    """Live VMEM of one batch row in the packed backward: logits f32 +
-    weights f32/bf16 + dW f32 + dlogits bf16 (~16 B per (head, L, S') elem)
-    plus the five per-head (L', D) operand copies."""
-    padded_seq = -(-seq // 128) * 128
-    return (heads * seq * padded_seq * 16
-            + 5 * heads * head_dim * padded_seq * 2)
-
-
-def _bwd(heads, scale, causal, interpret, residuals, grad_out):
-    (qkv,) = residuals
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    batch, seq, triple_width = qkv.shape
-    head_dim = triple_width // 3 // heads
-    if _bwd_vmem_bytes(seq, heads, head_dim) > 90 * 2 ** 20:
-        # ViT-L/14@336-class sequences: the packed per-row grads exceed the
-        # 100MB scoped VMEM even at block=1 — take the einsum VJP instead.
-        def reference(qkv_):
-            q, k, v = jnp.split(qkv_, 3, axis=-1)
-            return _einsum_attention_packed(q, k, v, heads, scale, causal)
-
-        _, vjp = jax.vjp(reference, qkv)
-        return vjp(grad_out)
-    return (_backward_packed(qkv, grad_out, heads, scale, causal, interpret),)
-
-
-fused_attention_qkv.defvjp(_fwd, _bwd)
-
-
-def fused_attention(q: jnp.ndarray, k: jnp.ndarray, v: jnp.ndarray,
-                    causal: bool = False) -> jnp.ndarray:
-    """(B, L, H, D) in, (B, L, H, D) out, scaled by D^-0.5. Thin wrapper over
-    the packed kernel (the reshapes are free — same memory layout)."""
-    b, seq, heads, head_dim = q.shape
-
-    def pack(t):
-        return t.reshape(b, seq, heads * head_dim)
-
-    out = fused_attention_packed(pack(q), pack(k), pack(v), heads,
-                                 head_dim ** -0.5, causal)
-    return out.reshape(b, seq, heads, head_dim)
-
-
-def _int8_qkv_attention_kernel(xq_ref, w_ref, scale_ref, bias_ref, o_ref, *,
-                               heads: int, scale: float, causal: bool):
-    """QKV projection (int8 W8A8) + attention in ONE kernel: the (B, L, 3W)
-    qkv tensor never round-trips HBM, and the int8 weights (constant
-    index_map) stay resident in VMEM across grid steps. Measured best at
-    block_b=1 on v5e (smaller footprint pipelines better)."""
-    block_b, seq, width = o_ref.shape
-    head_dim = width // heads
-    acc = jax.lax.dot_general(
-        xq_ref[...], w_ref[...], dimension_numbers=(((2,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)  # (BB, L, 3W)
-    qkv = (acc.astype(jnp.float32) * scale_ref[...][0]
-           + bias_ref[...][0]).astype(o_ref.dtype)
-
-    def heads_along_batch(offset, transpose):
-        parts = [qkv[:, :, offset + h * head_dim:offset + (h + 1) * head_dim]
-                 for h in range(heads)]
-        if transpose:
-            parts = [part.swapaxes(1, 2) for part in parts]
-        return jnp.concatenate(parts, axis=0)
-
-    q = heads_along_batch(0, False) * jnp.asarray(scale, qkv.dtype)
-    k_t = heads_along_batch(width, True)
-    v = heads_along_batch(2 * width, False)
-    logits = jax.lax.dot_general(
-        q, k_t, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)
-    if causal:
-        row = jax.lax.broadcasted_iota(jnp.int32, logits.shape, 1)
-        col = jax.lax.broadcasted_iota(jnp.int32, logits.shape, 2)
-        logits = jnp.where(col <= row, logits, jnp.finfo(jnp.float32).min)
-    peak = jnp.max(logits, axis=-1, keepdims=True)
-    exps = jnp.exp(logits - peak)
-    denom = jnp.sum(exps, axis=-1, keepdims=True)
-    weights = (exps / denom).astype(qkv.dtype)
-    out = jax.lax.dot_general(
-        weights, v, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)
-    o_ref[...] = jnp.concatenate(
-        [out[h * block_b:(h + 1) * block_b] for h in range(heads)],
-        axis=2).astype(o_ref.dtype)
-
-
-def fused_int8_qkv_attention(x_q, kernel_q, out_scale, bias, heads: int,
-                             scale: float, causal: bool = False,
-                             interpret: Optional[bool] = None,
-                             out_dtype=jnp.bfloat16):
-    """x_q (B, L, W) int8 (pre-quantized activations), kernel_q (W, 3W) int8,
-    out_scale/bias (3W,) fp32 -> attention output (B, L, W) in out_dtype.
-    Inference-only (no VJP: the int8 path never trains)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    batch, seq, width = x_q.shape
-    block = 1
-    kernel = functools.partial(_int8_qkv_attention_kernel, heads=heads,
-                               scale=scale, causal=causal)
-    memory_space = pltpu.ANY if interpret else pltpu.VMEM
-    return pl.pallas_call(
-        kernel,
-        grid=(batch // block,),
-        in_specs=[
-            pl.BlockSpec((block, seq, width), lambda i: (i, 0, 0),
-                         memory_space=memory_space),
-            pl.BlockSpec((width, 3 * width), lambda i: (0, 0),
-                         memory_space=memory_space),
-            pl.BlockSpec((1, 3 * width), lambda i: (0, 0),
-                         memory_space=memory_space),
-            pl.BlockSpec((1, 3 * width), lambda i: (0, 0),
-                         memory_space=memory_space),
-        ],
-        out_specs=pl.BlockSpec((block, seq, width), lambda i: (i, 0, 0),
-                               memory_space=memory_space),
-        out_shape=jax.ShapeDtypeStruct((batch, seq, width), out_dtype),
-        interpret=interpret,
-    )(x_q, kernel_q, out_scale.reshape(1, -1), bias.reshape(1, -1))
+# The route each backend takes for 16-bit inputs (chosen from H100
+# timings, PERF.md).
+ROUTES = {"cpu": "xla", "gpu": "cudnn"}
+IMPLEMENTATIONS = ("xla", "cudnn")
+
+
+def route_for(backend: str, dtype) -> str:
+    """The attention route for ``dtype`` inputs on ``backend``; raises for a
+    backend with no route."""
+    if backend not in ROUTES:
+        raise NotImplementedError(
+            f"no attention route for backend {backend!r}; routes: {ROUTES}")
+    if jnp.dtype(dtype) == jnp.float32:
+        return "xla"
+    return ROUTES[backend]
+
+
+def attention(q: jnp.ndarray, k: jnp.ndarray, v: jnp.ndarray, *,
+              causal: bool = False, key_mask: Optional[jnp.ndarray] = None,
+              implementation: Optional[str] = None) -> jnp.ndarray:
+    """softmax(q k^T / sqrt(d)) v over (B, L, H, D) inputs -> (B, L, H, D).
+
+    ``key_mask``: optional (B, L) boolean, True where a key may be attended
+    (DistilBERT/MMBert padding). ``implementation`` overrides the backend's
+    route; it must be one of ``IMPLEMENTATIONS``."""
+    if implementation is None:
+        implementation = route_for(jax.default_backend(), q.dtype)
+    if implementation not in IMPLEMENTATIONS:
+        raise ValueError(f"unknown attention implementation {implementation!r}; "
+                         f"expected one of {IMPLEMENTATIONS}")
+    mask = None if key_mask is None else key_mask[:, None, None, :]
+    if implementation == "xla":
+        with jax.default_matmul_precision("highest"):
+            return jax.nn.dot_product_attention(q, k, v, mask=mask,
+                                                is_causal=causal,
+                                                implementation="xla")
+    length = q.shape[1]
+    if length % 2 == 0:
+        return jax.nn.dot_product_attention(q, k, v, mask=mask,
+                                            is_causal=causal,
+                                            implementation="cudnn")
+    pad = ((0, 0), (0, 1), (0, 0), (0, 0))
+    q, k, v = (jnp.pad(t, pad) for t in (q, k, v))
+    if mask is not None:
+        mask = jnp.pad(mask, ((0, 0), (0, 0), (0, 0), (0, 1)))
+    lengths = jnp.full((q.shape[0],), length, jnp.int32)
+    out = jax.nn.dot_product_attention(q, k, v, mask=mask, is_causal=causal,
+                                       query_seq_lengths=lengths,
+                                       key_value_seq_lengths=lengths,
+                                       implementation="cudnn")
+    return out[:, :length]

@@ -1,14 +1,17 @@
 """W8A8 int8 inference path for the transformer's dense layers.
 
-v5e's MXU runs int8 at 394 TOPS vs 197 TFLOP/s bf16; measured on this chip,
-an XLA int8 matmul with dequant epilogue sustains ~320 TOPS (1.6x bf16) at
-ViT-B/16 MLP shapes. Scheme:
+The H100's tensor cores run int8 at twice their bf16 rate, but XLA's
+s8 x s8 -> s32 dot here comes with a quantize pass before and a dequantize
+epilogue after each dense. On an H100 80GB HBM3 (700 W limit) the
+calibrated int8 ViT-B/16 encode ran at 2219 clips/s against 2577 in bf16
+(bench.py, PERF.md): slower, so bf16 is the throughput configuration and
+int8 a quality-gated option (cosine >= 0.999 against bf16). Scheme:
 
 - **Weights**: symmetric per-output-channel int8, quantized offline by
   ``quantize_clip_params`` (kernel -> kernel_q int8 + scale fp32).
 - **Activations**: symmetric dynamic per-token (per-row) int8, computed
   on the fly in fp32.
-- **Accumulation** in int32 on the MXU; dequant epilogue fuses the row and
+- **Accumulation** in int32; the dequant epilogue fuses the row and
   channel scales in fp32 and casts to the compute dtype.
 - LayerNorm statistics, softmax and the attention core stay in bf16/fp32.
 
@@ -39,11 +42,10 @@ def quantize_weight(kernel: np.ndarray) -> Dict[str, np.ndarray]:
 
 def int8_dense(x: jnp.ndarray, kernel_q: jnp.ndarray, scale: jnp.ndarray,
                bias: jnp.ndarray) -> jnp.ndarray:
-    """Quantized dense: DYNAMIC per-row activation quant + int32 MXU matmul +
-    fused dequant. Most accurate, but the row abs-max reduction costs a full
-    extra pass over the activations per dense — measured to cancel the int8
-    matmul speedup at ViT-B/16 scale. Used for calibration; the fast path is
-    ``int8_dense_static``."""
+    """Quantized dense: DYNAMIC per-row activation quant + int32-accumulating
+    int8 matmul + fused dequant. Most accurate, but the row abs-max reduction
+    costs a full extra pass over the activations per dense. Used for
+    calibration; the serving path is ``int8_dense_static``."""
     x32 = x.astype(jnp.float32)
     amax = jnp.maximum(jnp.max(jnp.abs(x32), axis=-1, keepdims=True), QUANT_EPS)
     row_scale = amax / 127.0

@@ -2,10 +2,11 @@
 
 The reference delegates distribution to PyTorch Lightning DDP + a custom
 ``all_gather`` wrapper (util/tensor_utils.py:48-66) and manual distributed
-samplers (SURVEY §2.8). TPU-natively all of that collapses into GSPMD: one
+samplers (SURVEY §2.8). Under JAX all of that collapses into GSPMD: one
 ``Mesh``, batch arrays sharded on the leading axis over ``"data"``, parameters
-replicated, and XLA inserts the ICI collectives (gradient psum, the
-global-batch embedding all-gather inside the contrastive loss) automatically.
+replicated, and XLA inserts the collectives (gradient psum, the
+global-batch embedding all-gather inside the contrastive loss) automatically;
+on several GPUs XLA hands them to NCCL.
 The gather-with-gradients subtlety the reference handled with
 ``sync_grads=True`` is free here: collectives under ``jit`` differentiate.
 """
@@ -17,22 +18,6 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 DATA_AXIS = "data"
-
-
-def shard_map_compat(fn, **kwargs):
-    """jax.shard_map across the supported jax versions: the import moved out
-    of experimental (~0.8) and the replication-check kwarg was renamed
-    check_rep -> check_vma. Both checks are disabled — callers here wrap
-    pallas_calls (whose out_shapes carry no varying-mesh-axes annotation) or
-    device-varying pipeline schedules."""
-    try:
-        from jax import shard_map
-    except ImportError:  # pragma: no cover - older jax
-        from jax.experimental.shard_map import shard_map
-    try:
-        return shard_map(fn, check_vma=False, **kwargs)
-    except TypeError:  # pragma: no cover - jax ~0.6-0.7 spelling
-        return shard_map(fn, check_rep=False, **kwargs)
 
 
 def create_mesh(devices: Optional[Sequence] = None,

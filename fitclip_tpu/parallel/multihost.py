@@ -1,7 +1,7 @@
 """Multi-host (multi-process SPMD) entry points.
 
-A TPU pod runs one process per host; each process sees only its local chips
-but jit operates on GLOBAL arrays over the full mesh. This module holds the
+A multi-host run has one process per host; each process sees only its local
+devices but jit operates on GLOBAL arrays over the full mesh. This module holds the
 three pieces a single-host run doesn't need (reference parallel: PL DDP spawn
 + DistributedSampler, SURVEY §2.8):
 
@@ -38,8 +38,9 @@ def maybe_initialize_distributed(cfg: Optional[dict] = None) -> bool:
     Sources, in priority order:
     1. cfg["distributed"] = {coordinator_address, num_processes, process_id}
     2. env JAX_COORDINATOR_ADDRESS (+ JAX_NUM_PROCESSES, JAX_PROCESS_ID)
-    3. cloud TPU auto-detection (jax.distributed.initialize() no-arg) when
-       cfg["distributed"] == "auto".
+
+    The coordinator address, process count and process id are always
+    given: nothing in the environment tells JAX of a cluster.
     """
     dist = (cfg or {}).get("distributed")
     if dist is None and os.environ.get("JAX_COORDINATOR_ADDRESS"):
@@ -50,15 +51,12 @@ def maybe_initialize_distributed(cfg: Optional[dict] = None) -> bool:
         }
     if not dist:
         return jax.process_count() > 1
-    if dist == "auto":
-        jax.distributed.initialize()
-    else:
-        jax.distributed.initialize(
-            coordinator_address=dist["coordinator_address"],
-            num_processes=int(dist["num_processes"]),
-            process_id=int(dist["process_id"]),
-            local_device_ids=dist.get("local_device_ids"),
-        )
+    jax.distributed.initialize(
+        coordinator_address=dist["coordinator_address"],
+        num_processes=int(dist["num_processes"]),
+        process_id=int(dist["process_id"]),
+        local_device_ids=dist.get("local_device_ids"),
+    )
     LOGGER.info("Distributed runtime up: process %d/%d, %d local / %d global devices",
                 jax.process_index(), jax.process_count(),
                 jax.local_device_count(), jax.device_count())

@@ -24,7 +24,6 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from fitclip_tpu.parallel.mesh import shard_map_compat
 
 PIPE_AXIS = "pipe"
 
@@ -101,6 +100,6 @@ def pipeline_apply(layer_fn: Callable[[Any, jnp.ndarray], jnp.ndarray],
     # across stages (in/out_specs P()) — for the deep-tower use case the
     # layer weights dominate, and the batch arrives replicated anyway.
     param_specs = jax.tree_util.tree_map(lambda _: P(axis), layer_params)
-    program = shard_map_compat(stage_program, mesh=mesh,
-                               in_specs=(param_specs, P()), out_specs=P())
+    program = jax.shard_map(stage_program, mesh=mesh, check_vma=False,
+                            in_specs=(param_specs, P()), out_specs=P())
     return program(layer_params, microbatches).reshape((batch,) + x.shape[1:])

@@ -5,15 +5,22 @@ Full mid-training resume (the reference's ``trainer.fit(ckpt_path=...)``,
 aligner/cli.py:148 + __main__.py:51): a Trainer checkpoint holds the ENTIRE
 TrainState (params, optimizer moments, step, temperature clamps) plus a JSON
 sidecar with callback state (best-monitor value, early-stopping counters), so
-``command=train checkpoint_path=<dir>`` continues bit-identically."""
+``command=train checkpoint_path=<dir>`` continues bit-identically.
+
+Orbax is imported on first use: a run without checkpoints (evaluate, or
+train without the checkpoint callback) does not need it installed."""
 
 import json
 import os
 from typing import Any, Dict, Optional
 
-import orbax.checkpoint as ocp
+_ASYNC_CHECKPOINTER = None
 
-_ASYNC_CHECKPOINTER: Optional[ocp.StandardCheckpointer] = None
+
+def _checkpointer():
+    import orbax.checkpoint as ocp
+
+    return ocp.StandardCheckpointer()
 
 
 def save_checkpoint(path: str, state: Any, force: bool = True,
@@ -28,7 +35,7 @@ def save_checkpoint(path: str, state: Any, force: bool = True,
     global _ASYNC_CHECKPOINTER
     path = os.path.abspath(path)
     if _ASYNC_CHECKPOINTER is None:
-        _ASYNC_CHECKPOINTER = ocp.StandardCheckpointer()
+        _ASYNC_CHECKPOINTER = _checkpointer()
     _ASYNC_CHECKPOINTER.wait_until_finished()
     _ASYNC_CHECKPOINTER.save(path, state, force=force)
     if wait:
@@ -43,7 +50,7 @@ def wait_for_checkpoints() -> None:
 
 def restore_checkpoint(path: str, template: Optional[Any] = None) -> Any:
     path = os.path.abspath(path)
-    checkpointer = ocp.StandardCheckpointer()
+    checkpointer = _checkpointer()
     if template is not None:
         return checkpointer.restore(path, template)
     return checkpointer.restore(path)
@@ -52,7 +59,7 @@ def restore_checkpoint(path: str, template: Optional[Any] = None) -> Any:
 def checkpoint_top_level_keys(path: str) -> set:
     """Top-level pytree keys of a checkpoint, from metadata only (no tensor
     reads)."""
-    metadata = ocp.StandardCheckpointer().metadata(os.path.abspath(path))
+    metadata = _checkpointer().metadata(os.path.abspath(path))
     tree = getattr(metadata, "item_metadata", metadata).tree
     return set(tree.keys())
 

@@ -11,11 +11,11 @@ Reference semantics re-expressed functionally:
   get zero updates, so they also never allocate optimizer moments.
 """
 
+import dataclasses
 import math
 import re
 from typing import Any, Optional, Sequence, Tuple
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import optax
@@ -23,7 +23,8 @@ import optax
 Params = Any
 
 
-@flax.struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class TrainState:
     step: jnp.ndarray
     params: Params  # {"encoder": ..., "logit_scale": (1,), ["ts_logit_scale": (1,)]}
@@ -32,6 +33,9 @@ class TrainState:
 
     def temperature(self) -> jnp.ndarray:
         return 1.0 / jnp.exp(self.params["logit_scale"])
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
 
 def param_path_strings(params: Params) -> Sequence[str]:
@@ -66,14 +70,12 @@ class FusedAdamW(tuple):
     single-pass ``fused_apply``.
 
     optax splits each step into update() (materializes an updates tree) and
-    apply_updates() (re-reads params) — nominally 2 extra HBM passes over the
-    full fp32 parameter set per step. ``fused_apply`` computes new (p, m, v)
-    per leaf in ONE expression, so XLA emits one loop fusion per leaf:
-    4 reads + 3 writes, nothing materialized between. Measured win at
-    ViT-B/16 CLIP b=16 (same-session A/B, scripts/bench_train.py): 68.6 vs
-    69.6 ms/step — ~1 ms, small because XLA already fuses most of the optax
-    chain inside the jitted step; what remains is the updates-tree
-    materialization this removes.
+    apply_updates() (re-reads params) — nominally 2 extra device-memory
+    passes over the full fp32 parameter set per step. ``fused_apply``
+    computes new (p, m, v) per leaf in ONE expression, so XLA emits one loop
+    fusion per leaf: 4 reads + 3 writes, nothing materialized between. XLA
+    already fuses most of the optax chain inside the jitted step; what this
+    removes is the updates-tree materialization.
     The math term-for-term matches optax.adamw (bias correction on count+1,
     eps outside the sqrt, decoupled weight decay, -lr last), asserted by
     tests/test_fused_optimizer.py. Frozen leaves are skipped at trace time
@@ -102,9 +104,8 @@ def make_fused_adamw(learning_rate, weight_decay: float, betas, eps: float,
                      gradient_clip_val: Optional[float],
                      moment_dtype=None) -> FusedAdamW:
     """moment_dtype (e.g. jnp.bfloat16) stores the m/v moment trees reduced —
-    the AdamW pass is HBM-bound on this hardware (~12 ms/step of the ViT-B/16
-    train step is moment traffic, BASELINE.md), so halving the moment bytes
-    targets that directly. The update math always runs fp32 (moments are
+    the AdamW pass is memory-bound, so halving the moment bytes targets that
+    directly. The update math always runs fp32 (moments are
     upcast per leaf inside the same fusion); only the stored state narrows.
     None keeps full fp32 moments (the default and the numeric reference)."""
     b1, b2 = betas

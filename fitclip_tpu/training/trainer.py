@@ -1,6 +1,6 @@
 """The outer training loop: epochs, periodic validation, callbacks.
 
-Everything PL's Trainer did for the reference that still matters TPU-side:
+Everything PL's Trainer did for the reference that still matters here:
 - periodic validation at ``val_check_interval`` (fraction of an epoch, e.g.
   0.02 in teacher_student_trainer.yaml:16);
 - checkpoint cadence: best-by-monitor, every-N-epochs, wall-clock interval
@@ -94,13 +94,12 @@ class Trainer:
         ckpt = config.checkpoint
         last_time_ckpt = time.time()
         # Donate the TrainState: params + AdamW moments update in place, so
-        # HBM holds one state copy instead of old+new across the step (the
-        # difference between fitting and OOMing a larger tower/batch on one
-        # chip). The loop rebinds `state` to the step output immediately, so
-        # the donated input is never touched again. CPU/interpret backends
-        # don't implement donation — skip to avoid a per-compile warning.
-        donate = (0,) if jax.default_backend() in ("tpu", "gpu") else ()
-        jitted = jax.jit(train_step, donate_argnums=donate)
+        # device memory holds one state copy instead of old+new across the
+        # step (the difference between fitting and running out of memory
+        # with a larger tower/batch on one card). The loop rebinds `state` to
+        # the step output immediately, so the donated input is never touched
+        # again.
+        jitted = jax.jit(train_step, donate_argnums=(0,))
         global_step = int(state.step)
         stop = False
 

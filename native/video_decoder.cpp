@@ -1,6 +1,6 @@
 // FFmpeg-backed indexed video decoder for the fitclip_tpu input pipeline.
 //
-// The TPU-native equivalent of the reference's decord dependency
+// The equivalent of the reference's decord dependency
 // (aligner/data/video_reader.py:42-85 + SURVEY §2.9): open -> build a frame
 // index (pts per frame, keyframe flags) -> decode arbitrary frame indices as
 // RGB24 (optionally swscale-resized while decoding) -> expose frame-midpoint

@@ -1,7 +1,7 @@
 # %% [markdown]
 # # CLIP ↔ subtitle visualization
 #
-# TPU-native analogue of the reference analysis notebook
+# JAX analogue of the reference analysis notebook
 # (`notebooks/clip_subtitle_viz.ipynb`): score every frame of a video against
 # text spans mined from its ASR subtitles, and plot the per-frame similarity
 # curve with keyframe thumbnails pinned along it.
@@ -12,7 +12,7 @@
 #   (the reader protocol is codec-agnostic).
 # - torch CLIP → the in-tree jax `ClipVideoTextEncoder`; frames are encoded
 #   as 1-frame clips so one jitted `encode_video` call yields per-frame
-#   embeddings on the MXU.
+#   embeddings on the accelerator.
 # - spaCy sentence/chunk/phrase extraction → the POS-lite token-pattern
 #   matcher the demo ships (`demo/search.py`); DEP-parse-grade splits are
 #   approximated with POS patterns (documented per function).
@@ -80,7 +80,7 @@ def get_video_info(path: str, frame_stride: int = 10,
 # ## Encoding
 #
 # Frames become 1-frame clips: `(N, 1, H, W, C)` through the encoder's
-# jitted `encode_video` is N L2-normalized frame embeddings from one MXU
+# jitted `encode_video` is N L2-normalized frame embeddings from one
 # matmul chain (mean-pool over a single frame is the identity).
 
 # %%

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Per-core host decode cost model (VERDICT r2 weak #7 / SURVEY §7 hard-part
-#1). Pure host benchmark — no TPU.
+"""Per-core host decode cost model (SURVEY §7 hard-part
+#1). Pure host benchmark — no accelerator.
 
 Measures, per clip (4 uniform frames, the eval geometry):
   open      vd_open (demux + frame-index build)
@@ -101,7 +101,7 @@ def main() -> None:
         center_crop(small, 224)
     crop_ms = (time.perf_counter() - start) / 50 * 1e3
 
-    # Round-5 levers: threaded intra decode (BENCH_THREADS; a LATENCY lever
+    # Levers: threaded intra decode (BENCH_THREADS; a LATENCY lever
     # for multi-core hosts — on a 1-core box expect neutral/negative), and
     # the GOP analysis for the record (keyframe spacing bounds the catch-up
     # decode work per sampled frame).

@@ -72,17 +72,11 @@ def main() -> None:
     video_item = np.zeros((frames, spec.image_size, spec.image_size, 3),
                           np.uint8)
 
-    # Pallas towers (the int8 megakernels, the S3DG stem) serialize Mosaic
-    # custom calls; exempting them pins the artifact to same-version reloads
-    # (the deployment case). Harmless allowlist for plain-XLA programs.
-    allow = ("tpu_custom_call",)
     written = {}
     written["text"] = export_encode_fn(
-        encoder.encode_text, params, text_item, buckets, args.out_dir, "text",
-        allow_custom_calls=allow)
+        encoder.encode_text, params, text_item, buckets, args.out_dir, "text")
     written["video"] = export_encode_fn(
-        encoder.encode_video, params, video_item, buckets, args.out_dir, "video",
-        allow_custom_calls=allow)
+        encoder.encode_video, params, video_item, buckets, args.out_dir, "video")
     print(json.dumps({tower: {str(b): p for b, p in paths.items()}
                       for tower, paths in written.items()}, indent=2))
 

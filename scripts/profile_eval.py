@@ -1,74 +1,51 @@
 #!/usr/bin/env python
-"""Device-trace the int8 fused-block eval forward at production shape and
-aggregate per-op time — where do the ~76 ms per 512-frame call go now?"""
+"""Device-trace the CLIP ViT-B/16 eval encode at production shape and
+aggregate per-op time.
 
-import glob
-import gzip
-import json
+    python scripts/profile_eval.py [--clips 128] [--dtype bfloat16|int8|float32]
+"""
+
+import argparse
 import os
 import sys
-from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
 
+from _trace_util import print_aggregate, trace_and_aggregate
+
 
 def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--clips", type=int, default=128)
+    parser.add_argument("--dtype", default="bfloat16",
+                        choices=("bfloat16", "int8", "float32"))
+    parser.add_argument("--out", default=os.path.join("chiprun_out", "eval_trace"))
+    args = parser.parse_args()
+
     import jax
     import jax.numpy as jnp
 
     from fitclip_tpu.models.clip import CLIPConfig
-    from fitclip_tpu.models.clip.fast_eval import encode_frames_fast
-    from fitclip_tpu.ops.quant import quantize_clip_params
     from fitclip_tpu.models.clip.encoder import ClipVideoTextEncoder
+    from fitclip_tpu.ops.quant import quantize_clip_params
 
-    config = CLIPConfig.vit_b_16()
-    encoder = ClipVideoTextEncoder(config, num_frames=4, dtype=jnp.bfloat16,
-                                   quantized=True)
-    params = quantize_clip_params(ClipVideoTextEncoder(
-        config, num_frames=4, dtype=jnp.bfloat16).init_params(
-            jax.random.PRNGKey(0)))
+    quantized = args.dtype == "int8"
+    encoder = ClipVideoTextEncoder(
+        CLIPConfig.vit_b_16(), num_frames=4, quantized=quantized,
+        dtype=jnp.float32 if args.dtype == "float32" else jnp.bfloat16)
+    params = encoder.init_params(jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
-    calib = jnp.asarray(rng.integers(0, 256, size=(8, 4, 224, 224, 3),
+    video = jnp.asarray(rng.integers(0, 256, size=(args.clips, 4, 224, 224, 3),
                                      dtype=np.uint8))
-    params = jax.device_put(encoder.calibrate(params, calib))
-
-    frames = jnp.asarray(rng.normal(size=(512, 224, 224, 3)).astype(np.float32),
-                         dtype=jnp.bfloat16)
-
-    @jax.jit
-    def run(params, frames, bump):
-        return encode_frames_fast(
-            params, frames * (1 + bump * 1e-6).astype(frames.dtype), config)
-
-    out = run(params, frames, jnp.float32(0.0))
-    np.asarray(out)
-
-    trace_dir = "/tmp/fitclip_eval_trace"
-    jax.profiler.start_trace(trace_dir)
-    for i in range(3):
-        out = run(params, frames, jnp.float32(i))
-    np.asarray(out)
-    jax.profiler.stop_trace()
-
-    traces = sorted(glob.glob(os.path.join(trace_dir, "**", "*.trace.json.gz"),
-                              recursive=True), key=os.path.getmtime)
-    with gzip.open(traces[-1], "rt") as f:
-        trace = json.load(f)
-    tpu_pids = {e["pid"] for e in trace["traceEvents"]
-                if e.get("ph") == "M" and e.get("name") == "process_name"
-                and "tpu" in str(e.get("args", {}).get("name", "")).lower()} or {3}
-    per_op = defaultdict(float)
-    for e in trace["traceEvents"]:
-        if e.get("ph") == "X" and e.get("pid") in tpu_pids and "dur" in e:
-            per_op[e["name"]] += e["dur"] / 1e3
-    total = sum(per_op.values())
-    print(json.dumps({"total_ms_3calls": round(total, 2),
-                      "ms_per_call": round(total / 3, 2)}), flush=True)
-    for name, ms in sorted(per_op.items(), key=lambda kv: -kv[1])[:25]:
-        print(json.dumps({"op": name[:110], "ms_per_call": round(ms / 3, 3)}),
-              flush=True)
+    if quantized:
+        params = encoder.calibrate(quantize_clip_params(params), video[:8])
+    params = jax.device_put(params)
+    encode = jax.jit(encoder.encode_video)
+    per_op, calls = trace_and_aggregate(lambda: encode(params, video), args.out)
+    print_aggregate(per_op, calls, args.clips)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,6 @@
 #!/usr/bin/env python
 """Device-trace the Frozen-in-Time bf16 eval forward and aggregate per-op
-time. This trace drove the session-2 FiT work (175 -> 268 clips/s: fused
-space attention, logit-space CLS join, lane-slice time attention — see
-BASELINE.md). Kept for regression profiling; plumbing in _trace_util.py."""
+time; plumbing in _trace_util.py."""
 
 import os
 import sys
@@ -22,7 +20,7 @@ def main() -> None:
     from fitclip_tpu.models.frozen_in_time.encoder import FrozenInTimeVideoTextEncoder
 
     batch = int(os.environ.get("BENCH_CLIPS", "32"))
-    # BENCH_DTYPE=int8 traces the whole-block megakernel path (ops/fit_block).
+    # BENCH_DTYPE=int8 traces the W8A8 video-tower path.
     dtype = os.environ.get("BENCH_DTYPE", "bfloat16")
     encoder = FrozenInTimeVideoTextEncoder(
         num_frames=4, dtype=jnp.bfloat16 if dtype == "bfloat16" else dtype)
@@ -33,12 +31,9 @@ def main() -> None:
         params = jax.device_put(
             encoder.calibrate(jax.device_get(params), video[:8]))
 
-    @jax.jit
-    def run(params, video, bump):
-        return encoder.encode_video(params, video * (1 + bump * 1e-6))
-
+    encode = jax.jit(encoder.encode_video)
     per_op, calls = trace_and_aggregate(
-        lambda i: run(params, video, jnp.float32(i)), "/tmp/fitclip_fit_trace")
+        lambda: encode(params, video), os.path.join("chiprun_out", "fit_trace"))
     print_aggregate(per_op, calls, batch)
 
 

@@ -1,10 +1,6 @@
 #!/usr/bin/env python
-"""Device-trace the CLIP RN50 eval forward and aggregate per-op time.
-
-This trace found the round-3 session-2 RN50 dtype bug (the tower ignored
-encoder.dtype and ran fp32 HIGHEST convs — multi-pass emulated on v5e,
-~5% MFU). Kept for regression profiling; trace plumbing in _trace_util.py.
-"""
+"""Device-trace the CLIP RN50 eval forward and aggregate per-op time;
+trace plumbing in _trace_util.py."""
 
 import os
 import sys
@@ -31,12 +27,9 @@ def main() -> None:
     rng = np.random.default_rng(0)
     video = jnp.asarray(rng.normal(size=(batch, 4, 224, 224, 3)).astype(np.float32))
 
-    @jax.jit
-    def run(params, video, bump):
-        return encoder.encode_video(params, video * (1 + bump * 1e-6))
-
+    encode = jax.jit(encoder.encode_video)
     per_op, calls = trace_and_aggregate(
-        lambda i: run(params, video, jnp.float32(i)), "/tmp/fitclip_rn50_trace")
+        lambda: encode(params, video), os.path.join("chiprun_out", "rn50_trace"))
     print_aggregate(per_op, calls, batch)
 
 

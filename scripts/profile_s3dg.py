@@ -21,8 +21,8 @@ def main() -> None:
     from fitclip_tpu.models.mil_nce import MilNceVideoTextEncoder
 
     batch = int(os.environ.get("BENCH_CLIPS", "16"))
-    # S3DG_DTYPE=int8 traces the round-4 W8A8 matmul-conv path (calibrated
-    # on a slice of the bench batch first, mirroring bench_families).
+    # S3DG_DTYPE=int8 traces the W8A8 matmul-conv path (calibrated on a
+    # slice of the bench batch first, mirroring bench_families).
     dtype = os.environ.get("S3DG_DTYPE", "bfloat16")
     encoder = MilNceVideoTextEncoder(dtype=dtype if dtype == "int8"
                                      else jnp.dtype(dtype))
@@ -34,13 +34,9 @@ def main() -> None:
         params = jax.device_put(
             encoder.calibrate(jax.device_get(params), video[:8]))
 
-    @jax.jit
-    def run(params, video, bump):
-        return encoder.encode_video(params, video * (1 + bump * 1e-6))
-
+    encode = jax.jit(encoder.encode_video)
     per_op, calls = trace_and_aggregate(
-        lambda i: run(params, video, jnp.float32(i)),
-        os.environ.get("TRACE_DIR", "/tmp/s3dg_trace"))
+        lambda: encode(params, video), os.path.join("chiprun_out", "s3dg_trace"))
     print_aggregate(per_op, calls, batch)
     cat = aggregate_by_category(per_op, calls)
     import json

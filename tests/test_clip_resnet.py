@@ -197,9 +197,9 @@ def test_eval_only_encoder_refuses_training(tmp_path):
 
 
 def test_bf16_eval_config_close_to_fp32():
-    """++encoder.dtype=bfloat16 (the fast TPU eval configuration — fp32
-    HIGHEST convs are multi-pass emulated on v5e) must stay numerically close
-    to the fp32 oracle-parity path: same params, both dtypes, cosine > 0.999
+    """++encoder.dtype=bfloat16 (the throughput eval configuration) must stay
+    numerically close to the fp32 oracle-parity path: same params, both
+    dtypes, cosine > 0.999
     on video AND text."""
     import jax
     import jax.numpy as jnp

@@ -16,11 +16,7 @@ from fitclip_tpu.models.clip import CLIPConfig, CLIPModel
 @pytest.fixture(scope="module")
 def tiny_params():
     config = CLIPConfig.tiny_test()
-    model = CLIPModel(config)
-    import jax.numpy as jnp
-
-    params = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)),
-                        jnp.zeros((1, 16), jnp.int32))["params"]
+    params = CLIPModel(config).init(jax.random.PRNGKey(0))
     return config, params
 
 

@@ -190,7 +190,7 @@ def test_temporal_embed_inflation():
 
 
 def test_bf16_eval_config_close_to_fp32():
-    """++encoder.dtype=bfloat16 (the fast TPU eval configuration) must stay
+    """++encoder.dtype=bfloat16 (the throughput eval configuration) must stay
     embedding-equivalent to the fp32 parity configuration: same params, both
     dtypes, cosine > 0.999 on video AND text."""
     import jax
@@ -218,37 +218,11 @@ def test_bf16_eval_config_close_to_fp32():
                   fp32.encode_text(params, ids)) > 0.999
 
 
-def test_fused_space_attention_matches_einsum():
-    """fused_attention=True (the TPU default: space attention through the
-    Pallas kernel with the CLS row folded into each frame group) must match
-    the einsum oracle-parity path on the same params."""
-    import jax
-    import jax.numpy as jnp
-
-    from fitclip_tpu.models.frozen_in_time.encoder import (
-        FrozenInTimeConfig, FrozenInTimeVideoTextEncoder)
-
-    config = FrozenInTimeConfig.tiny_test()
-    einsum_enc = FrozenInTimeVideoTextEncoder(config, num_frames=2,
-                                              fused_attention=False)
-    fused_enc = FrozenInTimeVideoTextEncoder(config, num_frames=2,
-                                             fused_attention=True)
-    params = einsum_enc.init_params(jax.random.PRNGKey(0))
-    video = jnp.asarray(np.random.default_rng(0).normal(
-        size=(2, 2, 32, 32, 3)).astype(np.float32))
-    np.testing.assert_allclose(
-        np.asarray(fused_enc.encode_video(params, video), np.float32),
-        np.asarray(einsum_enc.encode_video(params, video), np.float32),
-        atol=2e-5, rtol=2e-5)
-
-
 def test_int8_eval_config_close_to_fp32():
     """++encoder.dtype=int8 (W8A8 video-tower denses, ops/quant.py) must stay
     embedding-equivalent to the fp32 parity configuration after multi-batch
     calibration: cosine > 0.99 on video, and text numerically equal to the
-    bf16 path (the DistilBERT tower is not quantized). Covers both the
-    einsum and fused-attention lowerings (the fused path splits the qkv
-    projection over CLS/patch rows — same static scales must apply)."""
+    bf16 path (the DistilBERT tower is not quantized)."""
     import jax
     import jax.numpy as jnp
 
@@ -258,8 +232,7 @@ def test_int8_eval_config_close_to_fp32():
     from fitclip_tpu.ops.quant import apply_act_scales, merge_act_amax
 
     config = FrozenInTimeConfig.tiny_test()
-    fp32 = FrozenInTimeVideoTextEncoder(config, num_frames=2,
-                                        fused_attention=False)
+    fp32 = FrozenInTimeVideoTextEncoder(config, num_frames=2)
     params = fp32.init_params(jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     video_a = jnp.asarray(rng.integers(0, 255, (2, 2, 32, 32, 3), dtype=np.uint8))
@@ -271,20 +244,18 @@ def test_int8_eval_config_close_to_fp32():
         return float(((a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
                                          * np.linalg.norm(b, axis=-1))).min())
 
-    for fused in (False, True):
-        enc = FrozenInTimeVideoTextEncoder(config, num_frames=2, dtype="int8",
-                                           fused_attention=fused)
-        assert enc.quantized
-        qparams = dict(params, video=quantize_fit_video_params(params["video"]))
-        # Running-abs-max calibration over two batches (the runners' policy),
-        # then eval on a batch the scales were NOT solely calibrated on.
-        amax = merge_act_amax(enc.collect_act_amax(qparams, video_a),
-                              enc.collect_act_amax(qparams, video_b))
-        qparams = apply_act_scales(qparams, amax)
-        assert cosine(enc.encode_video(qparams, video_b),
-                      fp32.encode_video(params, video_b)) > 0.99
-        np.testing.assert_allclose(
-            np.asarray(enc.encode_text(qparams, ids), np.float32),
-            np.asarray(FrozenInTimeVideoTextEncoder(
-                config, num_frames=2, dtype="bfloat16").encode_text(params, ids),
-                np.float32), atol=1e-6)
+    enc = FrozenInTimeVideoTextEncoder(config, num_frames=2, dtype="int8")
+    assert enc.quantized
+    qparams = dict(params, video=quantize_fit_video_params(params["video"]))
+    # Running-abs-max calibration over two batches (the runners' policy),
+    # then eval on a batch the scales were NOT solely calibrated on.
+    amax = merge_act_amax(enc.collect_act_amax(qparams, video_a),
+                          enc.collect_act_amax(qparams, video_b))
+    qparams = apply_act_scales(qparams, amax)
+    assert cosine(enc.encode_video(qparams, video_b),
+                  fp32.encode_video(params, video_b)) > 0.99
+    np.testing.assert_allclose(
+        np.asarray(enc.encode_text(qparams, ids), np.float32),
+        np.asarray(FrozenInTimeVideoTextEncoder(
+            config, num_frames=2, dtype="bfloat16").encode_text(params, ids),
+            np.float32), atol=1e-6)

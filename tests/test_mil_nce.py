@@ -110,7 +110,7 @@ def test_mil_nce_encoder_api():
 
 
 def test_bf16_s3dg_close_to_fp32():
-    """++encoder.dtype=bfloat16 (the fast TPU eval configuration) must stay
+    """++encoder.dtype=bfloat16 (the throughput eval configuration) must stay
     embedding-equivalent to the fp32 parity configuration: same params, both
     dtypes, cosine > 0.999 on the S3DG video tower."""
     import jax

@@ -10,7 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fitclip_tpu.models.clip.model import ResidualBlock, Transformer
+from fitclip_tpu.models.clip.model import (BlockSpec, init_blocks, residual_block,
+                                           transformer)
 from fitclip_tpu.parallel import create_mesh
 from fitclip_tpu.parallel.pipeline import pipeline_apply, stage_shardings
 
@@ -74,22 +75,18 @@ def test_pipeline_gradients_match_sequential():
 
 
 def test_pipeline_runs_real_clip_blocks():
-    """The production ResidualBlock pipelined across 4 stages equals the
-    nn.scan tower, with stage-sharded weights (each stage holds L/S layers)."""
+    """The production residual block pipelined across 4 stages equals the
+    scanned tower, with stage-sharded weights (each stage holds L/S layers)."""
     width, heads, layers = 32, 4, 8
-    transformer = Transformer(width=width, layers=layers, heads=heads,
-                              causal=False, quick_gelu=True, dtype=jnp.float32)
+    spec = BlockSpec(heads=heads, causal=False, quick_gelu=True,
+                     dtype=jnp.float32)
     rng = np.random.default_rng(2)
     x = jnp.asarray(rng.normal(size=(8, 5, width)).astype(np.float32))
-    variables = transformer.init(jax.random.PRNGKey(0), x)
-    stacked = variables["params"]["blocks"]
-    expected = transformer.apply(variables, x)
-
-    block = ResidualBlock(width=width, heads=heads, causal=False,
-                          quick_gelu=True, dtype=jnp.float32)
+    stacked = init_blocks(jax.random.PRNGKey(0), layers, width)
+    expected, _ = transformer(x, stacked, spec)
 
     def layer_fn(lp, h):
-        return block.apply({"params": lp}, h)[0]
+        return residual_block(h, lp, spec)[0]
 
     mesh = _pipe_mesh(4)
     placed = jax.device_put(stacked, stage_shardings(stacked, mesh))

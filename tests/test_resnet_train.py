@@ -183,8 +183,8 @@ def test_teacher_student_step_uses_combined_batch_bn(tiny_rn_config):
 
 def test_fused_block_teacher_allowed_for_training(tiny_rn_config):
     """A frozen teacher never receives gradients, so an inference-form
-    (fused_block) teacher must pass the train-runner guard; a fused_block
-    STUDENT must still be refused."""
+    (int8) teacher must pass the train-runner guard; an int8 STUDENT must
+    still be refused."""
     import pytest as _pytest
 
     from fitclip_tpu.cli.train_runner import run_train
@@ -196,17 +196,17 @@ def test_fused_block_teacher_allowed_for_training(tiny_rn_config):
             self.encoder = encoder
             self.params = {}
 
-    fused = Loaded(ClipVideoTextEncoder(CLIPConfig.tiny_test(), fused_block=True))
+    int8 = Loaded(ClipVideoTextEncoder(CLIPConfig.tiny_test(), quantized=True))
     plain = Loaded(ClipVideoTextEncoder(CLIPConfig.tiny_test()))
 
-    # fused student -> refused.
-    with _pytest.raises(ValueError, match="fused_block"):
-        run_train({"student": fused, "teacher": plain}, data_module=None,
+    # int8 student -> refused.
+    with _pytest.raises(ValueError, match="evaluation-only"):
+        run_train({"student": int8, "teacher": plain}, data_module=None,
                   model_cfg={}, trainer_cfg={}, optimizer_cfg={})
-    # fused teacher -> passes the guard (fails later only on the None data
+    # int8 teacher -> passes the guard (fails later only on the None data
     # module, which is enough to show the guard admitted it).
     with _pytest.raises(AttributeError):
-        run_train({"student": plain, "teacher": fused}, data_module=None,
+        run_train({"student": plain, "teacher": int8}, data_module=None,
                   model_cfg={}, trainer_cfg={}, optimizer_cfg={})
 
 

@@ -172,28 +172,3 @@ def test_int8_wired_into_encoders():
     assert "mixed_4b" in vamax["s3dg"]["int8"]  # default from_block skips early stages
     vemb = vc.encode_video(vparams, video)
     assert vemb.shape == (1, vc.config.hidden_size)
-
-
-def test_stem_kernel_path_with_folded_conv2b_matches():
-    """Round-5 copy fix: keeping the Pallas stem's native channels-on-
-    sublanes layout and folding the NDHWC relayout into conv_2b's
-    contraction must match the stem_kernel=False forward (interpret-mode
-    Pallas on CPU)."""
-    model = S3DG(dtype=jnp.bfloat16)
-    params = _params_with_real_stats(model)
-    rng = np.random.default_rng(3)
-    video = jnp.asarray(rng.random(size=(2, 8, 32, 32, 3)).astype(np.float32))
-
-    ref = np.asarray(
-        jax.jit(lambda p, v: s3dg_fast_apply(p, v, dtype=jnp.bfloat16,
-                                             stem_kernel=False))(params, video),
-        np.float32)
-    fold = np.asarray(
-        jax.jit(lambda p, v: s3dg_fast_apply(p, v, dtype=jnp.bfloat16,
-                                             stem_kernel=True))(params, video),
-        np.float32)
-    np.testing.assert_allclose(fold, ref, atol=0.05 * np.abs(ref).max(),
-                               rtol=0)
-    cos = ((ref * fold).sum(-1) /
-           (np.linalg.norm(ref, axis=-1) * np.linalg.norm(fold, axis=-1)))
-    assert cos.min() > 0.999

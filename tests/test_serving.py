@@ -1,6 +1,6 @@
 """Serving layer: dynamic batcher semantics + the embed service HTTP surface.
 
-The batcher is the TPU-native online-inference shape (static bucket shapes,
+The batcher is the online-inference shape (static bucket shapes,
 one compile per bucket — see fitclip_tpu/serving/batcher.py); these tests
 pin that requests are coalesced, padded rows never leak, backpressure
 rejects, and failures fan out without killing the dispatcher.

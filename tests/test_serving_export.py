@@ -99,7 +99,10 @@ def test_text_service_serves_from_exported_artifacts(tiny_encoder, tmp_path,
 # zero residue.
 
 
-def _run_in_subprocess(body: str) -> None:
+def _run_in_subprocess(body: str, env=None) -> None:
+    """Run ``body`` in a fresh CPU interpreter; ``env`` entries override the
+    environment (None removes a variable). Every program is cached, however
+    quick its compile."""
     import subprocess
     import sys
 
@@ -108,24 +111,65 @@ def _run_in_subprocess(body: str) -> None:
               "import os\n"
               "import numpy as np\n"
               "import jax.numpy as jnp\n" + body)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    full_env = dict(os.environ)
+    full_env["PYTHONPATH"] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    full_env["JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"] = "0"
+    for key, value in (env or {}).items():
+        if value is None:
+            full_env.pop(key, None)
+        else:
+            full_env[key] = value
+    env = full_env
     proc = subprocess.run([sys.executable, "-c", script], env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, f"subprocess failed:\n{proc.stdout}\n{proc.stderr}"
 
 
+def _cache_script(body: str) -> str:
+    return ("from fitclip_tpu.serving.export import enable_compilation_cache\n"
+            + body + "\n"
+            "np.asarray(jax.jit(lambda a: (a @ a.T).sum(axis=0) * 3.0)("
+            "jnp.arange(64, dtype=jnp.float32).reshape(8, 8)))\n")
+
+
 def test_compilation_cache_populates(tmp_path):
+    """A configured directory (no JAX_COMPILATION_CACHE_DIR) gets the entries."""
     cache_dir = str(tmp_path / "xla_cache")
-    _run_in_subprocess(f"""
-from fitclip_tpu.serving.export import enable_compilation_cache, disable_compilation_cache
-cache_dir = {cache_dir!r}
-enable_compilation_cache(cache_dir)
-x = jnp.arange(64, dtype=jnp.float32).reshape(8, 8)
-np.asarray(jax.jit(lambda a: (a @ a.T).sum(axis=0) * 3.0)(x))
-assert os.listdir(cache_dir), "persistent compilation cache wrote no entries"
-disable_compilation_cache()
-""")
+    _run_in_subprocess(_cache_script(
+        f"assert enable_compilation_cache({cache_dir!r}) == {cache_dir!r}") + f"""
+assert os.listdir({cache_dir!r}), "persistent compilation cache wrote no entries"
+""", env={"JAX_COMPILATION_CACHE_DIR": None})
+
+
+def test_compilation_cache_env_wins_over_config(tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, the cache lands there only: the
+    configured directory is neither created nor written."""
+    env_dir, configured = str(tmp_path / "env_cache"), str(tmp_path / "cfg_cache")
+    _run_in_subprocess(_cache_script(
+        f"assert enable_compilation_cache({configured!r}) == {env_dir!r}") + f"""
+assert os.listdir({env_dir!r})
+assert not os.path.exists({configured!r})
+""", env={"JAX_COMPILATION_CACHE_DIR": env_dir})
+
+
+def test_compilation_cache_defaults_to_checkout_dir():
+    """Neither the environment nor the caller names a directory: a fixed
+    <checkout>/.jax_cache, never a tmp name, pid or time."""
+    from fitclip_tpu.serving import export
+
+    checkout = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert export.DEFAULT_CACHE_DIR == os.path.join(checkout, ".jax_cache")
+    previous = os.environ.pop("JAX_COMPILATION_CACHE_DIR", None)
+    try:
+        assert export.compilation_cache_dir() == export.DEFAULT_CACHE_DIR
+        assert export.compilation_cache_dir("/x") == "/x"
+        os.environ["JAX_COMPILATION_CACHE_DIR"] = "/env"
+        assert export.compilation_cache_dir("/x") == "/env"
+        assert export.compilation_cache_dir() == "/env"
+    finally:
+        os.environ.pop("JAX_COMPILATION_CACHE_DIR", None)
+        if previous is not None:
+            os.environ["JAX_COMPILATION_CACHE_DIR"] = previous
 
 
 def test_cli_compilation_cache_knob(tmp_path):
@@ -143,16 +187,13 @@ except SystemExit:
     pass
 np.asarray(jax.jit(lambda a: a * 2 + 1)(jnp.arange(256.0).reshape(16, 16)))
 assert os.listdir(cache_dir)
-""")
+""", env={"JAX_COMPILATION_CACHE_DIR": None})
 
 
 def test_export_serves_non_clip_family_fit_int8(tmp_path):
-    """Serving breadth beyond CLIP (VERDICT r3 #6): a Frozen-in-Time int8
-    megakernel video tower with calibrated persisted scales exports through
-    the same jax.export artifact path and the reloaded program matches the
-    live encoder. (On CPU the megakernel runs in Pallas interpret mode, so
-    the artifact is plain StableHLO; on TPU the Mosaic custom calls ride the
-    allow_custom_calls exemption — scripts/check_export_int8.py fit.)"""
+    """Serving breadth beyond CLIP: a Frozen-in-Time int8 video tower with
+    calibrated persisted scales exports through the same jax.export artifact
+    path and the reloaded program matches the live encoder."""
     from fitclip_tpu.models.frozen_in_time.encoder import (
         FrozenInTimeConfig, FrozenInTimeVideoTextEncoder,
         quantize_fit_video_params)
@@ -160,13 +201,10 @@ def test_export_serves_non_clip_family_fit_int8(tmp_path):
                                        save_act_scales)
 
     cfg = FrozenInTimeConfig.tiny_test()
-    fp32 = FrozenInTimeVideoTextEncoder(cfg, num_frames=cfg.num_frames,
-                                        fused_attention=False)
+    fp32 = FrozenInTimeVideoTextEncoder(cfg, num_frames=cfg.num_frames)
     params = fp32.init_params(jax.random.PRNGKey(0))
     encoder = FrozenInTimeVideoTextEncoder(cfg, num_frames=cfg.num_frames,
-                                           dtype="int8",
-                                           fused_attention=False,
-                                           fused_block=True)
+                                           dtype="int8")
     qparams = dict(params, video=quantize_fit_video_params(params["video"]))
     rng = np.random.default_rng(7)
     video = rng.integers(0, 256, size=(2, cfg.num_frames, cfg.img_size,

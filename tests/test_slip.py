@@ -133,11 +133,8 @@ def test_slip_towers_match_reference(reference_slip_model):
         expected_txt = reference_slip_model.encode_text(
             torch.from_numpy(ids)).numpy()
 
-    actual_img = np.asarray(model.apply({"params": params}, jnp.asarray(images),
-                                        method=SlipModel.encode_image))
-    actual_txt = np.asarray(model.apply({"params": params},
-                                        jnp.asarray(ids, jnp.int32),
-                                        method=SlipModel.encode_text))
+    actual_img = np.asarray(model.encode_image(params, jnp.asarray(images)))
+    actual_txt = np.asarray(model.encode_text(params, jnp.asarray(ids, jnp.int32)))
     np.testing.assert_allclose(actual_img, expected_img, atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(actual_txt, expected_txt, atol=1e-4, rtol=1e-4)
 

@@ -138,8 +138,7 @@ def test_bf16_s3dg_tower_close_to_fp32():
 
 
 def test_bf16_fusion_tower_close_to_fp32_text():
-    """Round-4: the MMBert fusion matmuls follow ++encoder.dtype=bfloat16
-    (they were pinned fp32 HIGHEST — multi-pass emulated on v5e). The text
+    """The MMBert fusion matmuls follow ++encoder.dtype=bfloat16. The text
     path runs ONLY the fusion tower, so this gates the fusion numerics
     directly (the video gate above covers S3DG+fusion combined)."""
     import jax
